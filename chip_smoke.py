@@ -7,11 +7,14 @@ card.  Run from the repository root:
 It imports nothing of JAX or of the ``repro`` package.  It
 
   0. builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-     ``sm_90a``, one compiler per source, all started together);
+     ``sm_90a``, one compiler per library and pass count, all started
+     together);
   1. holds each kernel against its plain PyTorch version on the card at the
-     shapes the qwen2-0.5b serving path gives it — the TCEC matmul (K2) also
-     against an fp64 oracle — and times kernel, plain version and a PyTorch
-     library call (a yardstick the port never calls) with CUDA events;
+     shapes its path gives it — the TCEC matmuls (K2, K2b, K5, K6) also
+     against an fp64 oracle, and K2b, K5 and K6 bitwise against each other
+     over the whole tile menu — and times kernel, plain version and a
+     PyTorch library call (a yardstick the port never calls) with CUDA
+     events;
   2. serves qwen2-0.5b at full width (24 layers, random bf16 weights from a
      seed) through ``PagedServingEngine`` under ``bf16x6_pallas``, checks
      the launch counters and every request's output, then serves the same
@@ -21,7 +24,13 @@ It imports nothing of JAX or of the ``repro`` package.  It
      paths differ only in fp32 summation order), measures how far a mere
      change of summation order moves the twin's logits on the bf16 weights
      (the witness the bf16 limit is set from) and how both gaps grow with
-     depth, and profiles three decode ticks of the kernel path.
+     depth, and profiles three decode ticks of the kernel path;
+  3. drives ``tcec_matmul_auto`` under ``REPRO_TUNE=measure`` (fresh plan
+     cache under ``build/``) over the paper's batched-SGEMM sweep, a 4096^3
+     product and qwen2-0.5b's w_gate at prefill: the chosen (variant, tile),
+     every variant's best time, cuBLAS SGEMM's, the bounds, a cache hit on
+     a second plan, and each kernel's shared memory and blocks per SM
+     against the port's footprint model.
 
 Any failed check exits non-zero.  It prints the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -35,6 +44,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -45,11 +55,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and dense
-# bf16 tensor-core rate.  Bounds below are derived from these, not measured.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
+# tensor-core rate and fp32 rate outside the tensor cores (the paper's "FP32
+# SIMT" line).  Bounds below are derived from these, not measured.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
+#: The repo's fp64-oracle bounds of the TCEC matmuls (max-norm error).
+ORACLE_TOL = {"bf16x1": 1e-2, "bf16x3": 1e-4, "bf16x6": 2e-6,
+              "fp32_vpu": 1e-5}
 SEED = 0
 N_NEW = 32
 PAGE = 16
@@ -66,9 +81,9 @@ def max_rel(x, ref) -> float:
     return float((x - ref).abs().max() / (ref.abs().max() + 1e-300))
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -116,7 +131,6 @@ def check_k2(dev, rows):
     from repro_torch.kernels import tcec_matmul as tm
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    oracle_tol = {"bf16x1": 1e-2, "bf16x3": 1e-4, "bf16x6": 2e-6}
     # (k, n) of the layer shapes, with the lhs dtype, bias and activation
     # the qwen2 path gives them under bf16x6_pallas.
     layers = {(896, 896): ("wo", torch.float32, False, None),
@@ -139,9 +153,9 @@ def check_k2(dev, rows):
                 # fp32 operands: accuracy against the fp64 oracle.
                 got = tm.tcec_matmul_fused(a32, b32, pol)
                 err_o = max_rel(got, oracle)
-                if err_o >= oracle_tol[name]:
+                if err_o >= ORACLE_TOL[name]:
                     fail(f"K2 {name} m={m} k={k} n={n}: fp64-oracle error "
-                         f"{err_o:.3e} >= {oracle_tol[name]:.0e}")
+                         f"{err_o:.3e} >= {ORACLE_TOL[name]:.0e}")
                 err_p32 = max_rel(got, tm.tcec_matmul_plain(a32, b32, pol))
                 # The path's dtypes and epilogue: against the plain version.
                 kw = dict(bias=bias, activation=act)
@@ -292,6 +306,125 @@ def check_k4(dev, rows):
         if name == "bf16x6":
             headline = row
     return headline
+
+
+#: Shapes of the tcec_matmul_auto path (phase 3) the K2b/K5/K6 checks run
+#: at: name -> (lhs, rhs).  "oracle" is k = 4864, m = 256 (the fp64-oracle
+#: bounds' shape); "w_gate" qwen2-0.5b's gate layer at prefill; "batched"
+#: the paper's batched regime at s = 128; "ragged" a broadcast rhs with
+#: dims that no tile divides.
+FAMILY_SHAPES = {
+    "oracle": ((256, 4864), (4864, 896)),
+    "w_gate": ((256, 896), (896, 4864)),
+    "batched": ((256, 128, 128), (256, 128, 128)),
+    "ragged": ((3, 40, 72), (72, 136)),
+}
+FAMILY_HEADLINE = ("batched", "bf16x6")
+
+
+def family_bound(a, b, out, pol):
+    """(bound ms, what bounds it) of a K2b/K5/K6 call: fp32 operands read
+    once and the fp32 output written once, against the passes on the
+    tensor cores (vpu: one fp32 product on the SIMT cores)."""
+    n_bytes = 4 * (a.numel() + b.numel() + out.numel())
+    flops = 2.0 * out.numel() * a.shape[-1]
+    if pol.backend == "vpu":
+        return bound_ms(n_bytes, flops, FP32_FLOPS)
+    return bound_ms(n_bytes, flops * pol.passes)
+
+
+def check_family(dev, rows):
+    """K2b (bf16x1/x3/x6 and fp32_vpu), K5 and K6 (bf16x1/x3/x6) against
+    their plain versions (1e-5 max-norm; bf16x1 on a 1/8 grid) and an fp64
+    oracle; K2b, K5 and K6 bitwise equal at every tile of the menu; a
+    non-finite input gives the fp32 product's ±inf/NaN pattern.  Times each
+    kernel at the default tile beside its plain version, the fp32
+    ``torch.matmul`` and its bound."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tcec_matmul as tm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    variants = {"tcec_matmul_pallas": tm.pallas_launcher,
+                "tcec_matmul_staged": functools.partial(
+                    tm.staged_launcher, double_buffer=False),
+                "tcec_matmul_staged_db": functools.partial(
+                    tm.staged_launcher, double_buffer=True)}
+    calls = {"tcec_matmul_pallas": tm.tcec_matmul_pallas,
+             "tcec_matmul_staged": tm.tcec_matmul_staged,
+             "tcec_matmul_staged_db": tm.tcec_matmul_staged_db}
+    heads = {}
+    for shape, (sa, sb) in FAMILY_SHAPES.items():
+        a = torch.randn(sa, generator=gen, device=dev)
+        b = torch.randn(sb, generator=gen, device=dev)
+        ga, gb = (on_grid(x, gen) for x in (a, b))
+        oracle = torch.matmul(a.double(), b.double())
+        lib_ms = time_ms(lambda: torch.matmul(a, b))
+        for name in ("bf16x1", "bf16x3", "bf16x6", "fp32_vpu"):
+            pol = get_policy(name)
+            kernels = ["tcec_matmul_pallas"] if pol.backend == "vpu" \
+                else list(variants)
+            # Bitwise: every kernel at every tile against K2b's default.
+            base = tm.tcec_matmul_pallas(a, b, pol)
+            for kname in kernels:
+                for tile in _build.TILES:
+                    if not torch.equal(calls[kname](a, b, pol, tile), base):
+                        fail(f"{kname} {name} {shape} tile {tile}: not "
+                             f"bitwise equal to K2b at the default tile")
+            err_o = max_rel(base, oracle)
+            if err_o >= ORACLE_TOL[name]:
+                fail(f"K2b {name} {shape}: fp64-oracle error {err_o:.3e} >= "
+                     f"{ORACLE_TOL[name]:.0e}")
+            pa, pb = (ga, gb) if name == "bf16x1" else (a, b)
+            plain = tm.tcec_matmul_plain(pa, pb, pol)
+            plain_ms = time_ms(lambda: tm.tcec_matmul_plain(pa, pb, pol),
+                               queued=False)
+            for kname in kernels:
+                got = calls[kname](pa, pb, pol)
+                err_p = max_rel(got, plain)
+                if err_p >= 1e-5:
+                    fail(f"{kname} {name} {shape}: kernel vs plain "
+                         f"{err_p:.3e} >= 1e-5")
+                out, *_, launch = variants[kname](a, b, pol)
+                ms = time_ms(launch)
+                b_ms, b_by = family_bound(a, b, out, pol)
+                row = dict(kernel=kname, shape=shape, lhs=list(sa),
+                           rhs=list(sb), policy=name, tile=list(
+                               _build.DEFAULT_TILE), oracle_err=err_o,
+                           rel_err_vs_plain=err_p, max_abs_err=float(
+                               (got.double() - plain.double()).abs().max()),
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+                rows.append(row)
+                print(f"{kname:21s} {shape:7s} {name:8s}: oracle "
+                      f"{err_o:.2e} plain {err_p:.2e} bitwise over "
+                      f"{len(_build.TILES)} tiles | {ms:.4f} ms (plain "
+                      f"{plain_ms:.4f}, fp32 matmul {lib_ms:.4f}, bound "
+                      f"{b_ms:.4f} {b_by})", flush=True)
+                if (shape, name) == FAMILY_HEADLINE:
+                    heads[kname] = row
+        # Non-finite inputs: the fp32 product's ±inf/NaN pattern.
+        if shape == "ragged":
+            a_bad = a.clone()
+            a_bad[1, 2, 3], a_bad[0, 5, 0] = float("inf"), float("nan")
+            ref = torch.matmul(a_bad, b)
+            for name in ("bf16x1", "bf16x3", "bf16x6", "fp32_vpu"):
+                pol = get_policy(name)
+                kernels = ["tcec_matmul_pallas"] if pol.backend == "vpu" \
+                    else list(variants)
+                for kname in kernels:
+                    got = calls[kname](a_bad, b, pol)
+                    bad = ~torch.isfinite(ref)
+                    if not (torch.equal(torch.isnan(got), torch.isnan(ref))
+                            and torch.equal(got[bad & ~torch.isnan(ref)],
+                                            ref[bad & ~torch.isnan(ref)])
+                            and bool(torch.isfinite(got[~bad]).all())):
+                        fail(f"{kname} {name}: non-finite pattern differs "
+                             f"from the fp32 product's")
+            print("K2b/K5/K6: non-finite inputs give the fp32 product's "
+                  "±inf/NaN pattern under every policy", flush=True)
+    return heads
 
 
 # ---------------------------------------------------------------------------
@@ -469,7 +602,8 @@ def check_serve(dev, results):
     expect = {"tcec_matmul": per_fwd * (st["prefills"] + st["decode_ticks"]),
               "flash_attention": cfg.n_layers * st["prefills"],
               "paged_attention": cfg.n_layers * st["decode_ticks"]}
-    if info_k["launches"] != expect:
+    launched = {k: v for k, v in info_k["launches"].items() if v}
+    if launched != expect:
         fail(f"launch counts {info_k['launches']} != expected {expect}")
     if sorted(out_k) != list(range(len(prompts))) or any(
             len(v) != N_NEW for v in out_k.values()):
@@ -556,6 +690,177 @@ def check_serve(dev, results):
     return info_k
 
 
+# ---------------------------------------------------------------------------
+# Phase 3: the tuner-dispatched TCEC matmul (tcec_matmul_auto)
+# ---------------------------------------------------------------------------
+
+#: The paper's batched-SGEMM sweep (Fig. 10; benchmarks/tcec_throughput.py):
+#: batch x square s, batched rhs; one 4096^3 product; qwen2-0.5b's w_gate at
+#: prefill.  name -> (batch or None, m, n, k).
+SWEEP = {**{f"b{bt}_s{sz}": (bt, sz, sz, sz) for bt in (8, 64, 256)
+            for sz in (32, 64, 128)},
+         "sq4096": (None, 4096, 4096, 4096),
+         "w_gate": (None, 256, 4864, 896)}
+SWEEP_POLICY = "bf16x6"
+
+
+def footprints():
+    """Shared memory per block and resident blocks per SM of every
+    (variant, tile) under bf16x6 as the card reports them, against the
+    port's footprint model (``core.roofline``)."""
+    from repro_torch.core import roofline
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tcec_matmul as tm
+    from repro_torch.tune import matmul_variants
+    pol = get_policy(SWEEP_POLICY)
+    table = []
+    print(f"footprint under {SWEEP_POLICY} (card vs model):", flush=True)
+    for variant in matmul_variants(pol) + ("vpu",):
+        for tile in _build.TILES:
+            got = tm.kernel_attrs(variant, tile, "fp32_vpu"
+                                  if variant == "vpu" else pol)
+            smem = roofline.matmul_tile_footprint(*tile, pol.n_words,
+                                                  variant)
+            blocks = roofline.resident_blocks(
+                smem, _build.tile_threads(*tile[:2]), got["regs"])
+            row = dict(variant=variant, tile=list(tile), **got,
+                       model_smem_bytes=smem, model_blocks_per_sm=blocks)
+            table.append(row)
+            print(f"  {variant:9s} {str(tile):15s} {got['smem_bytes']:7d} B "
+                  f"(model {smem:7d}), {got['threads']:3d} threads, "
+                  f"{got['regs']:3d} regs, {got['blocks_per_sm']:2d} "
+                  f"blocks/SM (model {blocks:2d})", flush=True)
+            if (got["smem_bytes"], got["blocks_per_sm"], got["threads"]) \
+                    != (smem, blocks, _build.tile_threads(*tile[:2])):
+                fail(f"footprint of {variant} {tile}: card {got}, model "
+                     f"{smem} B, {blocks} blocks/SM")
+    return table
+
+
+def kernel_only_us(a, b, pol):
+    """Each variant's best time over the tile menu with the kernel alone
+    enqueued (the host split of K5/K6 and the guard left out): the paper's
+    comparison of data flows.  Run after the path's launches are read."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tcec_matmul as tm
+    from repro_torch.tune import matmul_variants
+    best = {}
+    for variant in matmul_variants(pol):
+        for tile in _build.TILES:
+            if variant == "fused":
+                _, _, launch = tm.pallas_launcher(a, b, pol, tile)
+            else:
+                _, launch = tm.staged_launcher(
+                    a, b, pol, tile, double_buffer=variant == "staged_db")
+            us = time_ms(launch, reps=10) * 1e3
+            if us < best.get(variant, (float("inf"),))[0]:
+                best[variant] = (us, list(tile))
+    return best
+
+
+def check_auto(dev, results):
+    """Drive ``tcec_matmul_auto`` over the sweep under REPRO_TUNE=measure
+    with a fresh plan cache (every candidate timed: REPRO_TUNE_TOPK covers
+    the space); check each result against an fp64 oracle, that a second
+    plan of each shape comes from the cache with no launch, and report the
+    chosen (variant, tile), every variant's best time and TFLOP/s, cuBLAS
+    SGEMM's time and the bounds.  Returns the launch counts of the run."""
+    import os
+    import shutil
+    import torch
+    from repro_torch import tune
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.tcec_matmul import tcec_matmul_auto
+    cache = ROOT / "build" / "tune-cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    env = {"REPRO_TUNE": "measure", "REPRO_TUNE_CACHE": str(cache),
+           "REPRO_TUNE_TOPK": "64"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    tune.clear_plan_cache()
+    pol = get_policy(SWEEP_POLICY)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    inputs = {}
+    for name, (bt, m, n, k) in SWEEP.items():
+        lead = () if bt is None else (bt,)
+        inputs[name] = (torch.randn(lead + (m, k), generator=gen, device=dev),
+                        torch.randn(lead + (k, n), generator=gen, device=dev))
+    rows, outs = [], {}
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for name, (a, b) in inputs.items():
+            outs[name] = tcec_matmul_auto(a, b, pol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        tune.clear_plan_cache()      # the second plans come from the file
+        for name, (bt, m, n, k) in SWEEP.items():
+            a, b = inputs[name]
+            before = launch_counts()
+            plan = tune.matmul_plan(m, n, k, policy=pol, batch=bt or 1,
+                                    rhs_batched=bt is not None, site="auto")
+            if launch_counts() != before or plan.source != "measured" \
+                    or not plan.trials:
+                fail(f"phase 3 {name}: the second plan was not a cache hit")
+            out = outs[name]
+            err = max_rel(out, torch.matmul(a.double(), b.double()))
+            if tuple(out.shape) != tuple(a.shape[:-1]) + (n,) or \
+                    not bool(torch.isfinite(out).all()) or \
+                    err >= ORACLE_TOL[SWEEP_POLICY]:
+                fail(f"phase 3 {name}: shape {tuple(out.shape)}, fp64-oracle "
+                     f"error {err:.3e}")
+            flops = 2.0 * (bt or 1) * m * n * k
+            best = {}
+            for variant, block, us in plan.trials:
+                if us < best.get(variant, (float("inf"),))[0]:
+                    best[variant] = (us, list(block))
+            kernel = kernel_only_us(a, b, pol)
+            sgemm_ms = time_ms(lambda: torch.matmul(a, b))
+            b_ms, b_by = family_bound(a, b, out, pol)
+            row = dict(shape=name, batch=bt or 1, m=m, n=n, k=k,
+                       variant=plan.variant, tile=list(plan.block),
+                       predicted_us=plan.predicted_us,
+                       measured_us=plan.measured_us, oracle_err=err,
+                       best_us={v: t for v, (t, _) in best.items()},
+                       best_tile={v: bl for v, (_, bl) in best.items()},
+                       tflops={v: flops / t / 1e6
+                               for v, (t, _) in best.items()},
+                       kernel_us={v: t for v, (t, _) in kernel.items()},
+                       kernel_tile={v: bl for v, (_, bl) in kernel.items()},
+                       sgemm_ms=sgemm_ms, sgemm_tflops=flops / sgemm_ms / 1e9,
+                       bound_ms=b_ms, bound_by=b_by,
+                       bound_tflops=flops / b_ms / 1e9,
+                       simt_peak_tflops=FP32_FLOPS / 1e12)
+            rows.append(row)
+            per = ", ".join(f"{v} {t:.1f} us {flops / t / 1e6:.2f} TF/s"
+                            for v, (t, _) in sorted(best.items()))
+            kper = ", ".join(f"{v} {t:.1f} us {tuple(bl)} {flops / t / 1e6:.2f}"
+                             f" TF/s" for v, (t, bl) in sorted(kernel.items()))
+            print(f"auto {name:7s}: chose {plan.variant} {plan.block} | "
+                  f"call: {per} | kernel alone: {kper} | cuBLAS SGEMM "
+                  f"{sgemm_ms * 1e3:.1f} us {row['sgemm_tflops']:.2f} TF/s | "
+                  f"bound {b_ms * 1e3:.2f} us {row['bound_tflops']:.1f} TF/s "
+                  f"({b_by}), fp32 SIMT peak 67 TF/s | oracle {err:.2e} | "
+                  f"cache hit", flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tune.clear_plan_cache()
+    print(f"phase 3: {len(SWEEP)} shapes in {wall:.1f} s (tuning included), "
+          f"launches {counts}", flush=True)
+    results["auto"] = dict(rows=rows, launches=counts, seconds=wall,
+                           footprint=footprints())
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parity-only", action="store_true",
@@ -604,7 +909,8 @@ def main(argv=None) -> int:
     rows = []
     heads = {"tcec_matmul": check_k2(dev, rows),
              "flash_attention": check_k3(dev, rows),
-             "paged_attention": check_k4(dev, rows)}
+             "paged_attention": check_k4(dev, rows),
+             **check_family(dev, rows)}
     results["kernels"] = rows
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -614,21 +920,38 @@ def main(argv=None) -> int:
         return 0
 
     info = check_serve(dev, results)
+    auto_launches = check_auto(dev, results)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
+    # kernel -> (source, TPU kernel it replaces, launches on its path: the
+    # serving run (phase 2) for K2-K4, the tcec_matmul_auto run (phase 3)
+    # for K2b, K5 and K6)
+    mm = "src/repro_torch/csrc/tcec_matmul.cu"
+    staged = "src/repro_torch/csrc/tcec_staged.cu"
     meta = {
-        "tcec_matmul": ("src/repro_torch/csrc/tcec_matmul.cu",
-                        "src/repro/kernels/tcec_matmul.py:502"),
+        "tcec_matmul": (mm, "src/repro/kernels/tcec_matmul.py:502",
+                        info["launches"]),
+        "tcec_matmul_pallas": (mm, "src/repro/kernels/tcec_matmul.py:73",
+                               auto_launches),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:63"),
+                            "src/repro/kernels/flash_attention.py:63",
+                            info["launches"]),
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                            "src/repro/serving/paged_attention.py:65"),
+                            "src/repro/serving/paged_attention.py:65",
+                            info["launches"]),
+        "tcec_matmul_staged": (staged, "src/repro/kernels/tcec_matmul.py:106",
+                               auto_launches),
+        "tcec_matmul_staged_db": (staged,
+                                  "src/repro/kernels/tcec_matmul.py:351",
+                                  auto_launches),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, launches) in meta.items():
         r = heads[name]
+        if not launches[name]:
+            fail(f"{name} was not launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=info["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))

@@ -4,6 +4,12 @@ each with its plain PyTorch version and a launch counter.
   * K1 ``csrc/tcec_core.cuh`` — the shared split/accumulate core
     (plain versions in ``tcec_core``);
   * K2 ``tcec_matmul.tcec_matmul_fused`` — TCEC matmul + fused epilogue;
+  * K2b ``tcec_matmul.tcec_matmul_pallas`` — the same body, fp32 in and
+    out, over a tile menu, with its vpu (plain fp32) arm;
+  * K5 ``tcec_matmul.tcec_matmul_staged`` and K6
+    ``tcec_matmul.tcec_matmul_staged_db`` — the staged-word baseline,
+    synchronous and double-buffered; ``tcec_matmul.tcec_matmul_auto``
+    dispatches to K2b, K5 or K6 through ``repro_torch.tune``;
   * K3 ``flash_attention.flash_attention`` — prefill attention;
   * K4 ``repro_torch.serving.paged_attention.paged_decode_attention_kernel``
     — paged decode attention.

@@ -1,12 +1,12 @@
 """Build and load the port's CUDA kernels (route (b): nvcc -> shared library
 with a plain C interface -> ctypes).
 
-``load(name, passes)`` compiles every source of ``repro_torch/csrc`` at
-first use into ``<repo>/build/kernels/<hash>/lib<name>_p<passes>.so``, one
-library per (source, pass count) and one ``nvcc`` each, all started
-together; the directory is keyed by a hash of the sources and flags.  It
-then loads the library asked for.  Nothing is built or started when the
-module is imported.  Each library's compiler output (``-Xptxas -v``:
+``load(name, passes)`` compiles every library of ``LIBS`` at first use into
+``<repo>/build/kernels/<hash>/lib<name>_p<passes>.so``, one library per
+(library, pass count) and one ``nvcc`` each, all started together; the
+directory is keyed by a hash of the sources and flags.  It then loads the
+library asked for.  Nothing is built or started when the module is
+imported.  Each library's compiler output (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside it as ``<lib>.log``, and
 the compile seconds of the last build in ``build_seconds.json``.
 
@@ -28,15 +28,33 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("tcec_matmul", "flash_attention", "paged_attention")
+#: library -> (source in ``csrc``, extra nvcc flags).  K2 and K2b share one
+#: source and build as two libraries, so they compile in parallel.
+LIBS = {
+    "tcec_matmul": ("tcec_matmul.cu", ()),
+    "tcec_matmul_k2b": ("tcec_matmul.cu", ("-DREPRO_K2B",)),
+    "tcec_staged": ("tcec_staged.cu", ()),
+    "flash_attention": ("flash_attention.cu", ()),
+    "paged_attention": ("paged_attention.cu", ()),
+}
 #: Pass counts the kernels are built for (bf16x1, bf16x3, bf16x6); each is
 #: its own library so the builds run in parallel.
 PASSES = (1, 3, 6)
+#: The tile menu of K2b, K5 and K6, (bm, bn, bk) — the list of
+#: ``csrc/tcec_tile.cuh::dispatch``.  Every warp owns a 32 x 32 output tile.
+TILES = ((32, 32, 32), (64, 64, 32), (128, 64, 32), (128, 128, 32))
+#: K2's tile, and K2b's/K5's/K6's when no tile is asked for.
+DEFAULT_TILE = (64, 64, 32)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, int], ctypes.CDLL] = {}
+
+
+def tile_threads(bm: int, bn: int) -> int:
+    """Threads of a block at tile (bm, bn): one warp per 32 x 32 outputs."""
+    return (bm // 32) * (bn // 32) * 32
 
 
 def _nvcc() -> str:
@@ -54,7 +72,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(LIBS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -74,7 +92,7 @@ def build_all() -> Path:
     jobs = {}
     t0 = time.perf_counter()
     try:
-        for name in SOURCES:
+        for name, (source, defines) in LIBS.items():
             for passes in PASSES:
                 lib = f"lib{name}_p{passes}"
                 so = out / f"{lib}.so"
@@ -83,8 +101,8 @@ def build_all() -> Path:
                 nvcc = nvcc or _nvcc()
                 tmp = out / f"{lib}.so.{os.getpid()}.tmp"
                 log = open(out / f"{lib}.log", "w")
-                cmd = [nvcc, *NVCC_FLAGS, f"-DREPRO_PASSES={passes}",
-                       f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                cmd = [nvcc, *NVCC_FLAGS, *defines, f"-DREPRO_PASSES={passes}",
+                       f"-I{CSRC}", "-o", str(tmp), str(CSRC / source)]
                 jobs[lib] = (subprocess.Popen(cmd, stdout=log,
                                               stderr=subprocess.STDOUT),
                              log, tmp, so)
@@ -112,8 +130,8 @@ def build_all() -> Path:
 
 
 def load(name: str, passes: int) -> ctypes.CDLL:
-    """The loaded library of source ``name`` built for ``passes`` (building
-    all on first use)."""
+    """The loaded library ``name`` (a key of ``LIBS``) built for ``passes``
+    (building all on first use)."""
     with _LOCK:
         lib = _LIBS.get((name, passes))
         if lib is None:

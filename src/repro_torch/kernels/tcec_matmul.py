@@ -1,21 +1,38 @@
-"""K2 — TCEC matmul with the epilogue fused into the store.
+"""The TCEC matmul family: K2 (fused epilogue), K2b, K5, K6 and the
+tuner-dispatched ``tcec_matmul_auto``.
 
-Counterpart of ``repro.kernels.tcec_matmul.tcec_matmul_fused`` (bf16 words,
-array rhs).  ``tcec_matmul_fused`` launches the CUDA kernel of
-``csrc/tcec_matmul.cu`` on a CUDA tensor and runs ``tcec_matmul_plain`` on
-a CPU tensor; there is no fallback from one to the other.
+Counterparts of ``repro.kernels.tcec_matmul`` (bf16 words; K2b also its vpu
+arm).  Each wrapper launches its CUDA kernel on a CUDA tensor and runs its
+plain PyTorch version on a CPU tensor; there is no fallback from one to the
+other.
+
+  * ``tcec_matmul_fused`` (K2, ``csrc/tcec_matmul.cu``) — the epilogue
+    (scale, bias, activation, residual, out dtype) fused into the store; the
+    serving path's dense layers.  Any float input dtype: the kernel reads
+    fp32 or bf16 operands at their own dtype — bf16 weights are never
+    widened on the host.
+  * ``tcec_matmul_pallas`` (K2b, same source) — no epilogue, operands cast
+    to fp32, fp32 out, over the tile menu (``_build.TILES``); words made in
+    registers (the paper's WMMAe data flow); the vpu arm is a plain FFMA
+    product (the paper's "FP32 SIMT" baseline).
+  * ``tcec_matmul_staged`` (K5, ``csrc/tcec_staged.cu``) and
+    ``tcec_matmul_staged_db`` (K6) — the WMMA-API baseline: the host splits
+    both operands into bf16 word arrays and the kernel stages every word
+    tile in shared memory (K6 through a two-slot ``cp.async`` pipeline).
+    bf16 words only.  K2b, K5 and K6 give the same bits at the same tile.
+  * ``tcec_matmul_auto`` — ``repro_torch.tune.matmul_plan`` picks (tile,
+    variant) and the call goes to K2b, K5 or K6.
 
 Shapes: a (m, k) or (b, m, k); b (k, n) or (b, k, n) (a batched rhs needs a
-batched lhs); bias (n,); residual like the output.  Any float input dtype;
-fp32 out, or ``out_dtype``.  The kernel reads fp32 or bf16 operands at their
-own dtype — bf16 weights are never widened on the host.
+batched lhs).  Ragged edges are masked in the kernels, not padded on the
+host.
 
 The non-finite guard stays on the host, as in the reference: corrected
-policies split sanitized operands (the kernel zeroes non-finite inputs in
-registers and raises a device flag) and, when an input was non-finite, the
-fp32 reference dot's ±inf/NaN entries — run through the same epilogue —
-replace the kernel's at those positions.  Reading the flag is one host
-sync per call under a corrected policy.
+policies split sanitized operands and, when an input was non-finite, the
+fp32 reference dot's ±inf/NaN entries replace the kernel's at those
+positions.  K2/K2b learn the inputs' finiteness from a device flag their
+kernel raises while splitting; K5/K6 check on the host.  Either way it is
+one host sync per call under a corrected policy.
 """
 from __future__ import annotations
 
@@ -25,16 +42,24 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tune
 from repro_torch.core.context import resolve_policy
-from repro_torch.core.policy import TcecPolicy
+from repro_torch.core.policy import TcecPolicy, get_policy
+from repro_torch.core.precision import split_words
 from repro_torch.core.tcec import nonfinite_guard, sanitize_nonfinite
 from repro_torch.tcec.epilogue import ACTIVATIONS
 from . import _build
 from .tcec_core import dot_params, kernel_passes, policy_dot
 
-__all__ = ["tcec_matmul_fused", "tcec_matmul_plain", "LAUNCHES"]
+__all__ = ["tcec_matmul_fused", "tcec_matmul_plain", "tcec_matmul_pallas",
+           "tcec_matmul_staged", "tcec_matmul_staged_db",
+           "tcec_matmul_staged_plain", "tcec_matmul_auto", "kernel_attrs",
+           "LAUNCHES"]
 
 LAUNCHES = _build.counter("tcec_matmul")
+LAUNCHES_K2B = _build.counter("tcec_matmul_pallas")
+LAUNCHES_K5 = _build.counter("tcec_matmul_staged")
+LAUNCHES_K6 = _build.counter("tcec_matmul_staged_db")
 
 _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -105,15 +130,35 @@ def tcec_matmul_plain(a: torch.Tensor, b: torch.Tensor, policy: TcecPolicy,
     return out
 
 
-def _entry(passes: int):
-    """The loaded library and its C entry point, argument types declared."""
-    lib = _build.load("tcec_matmul", passes)
-    fn = lib.repro_tcec_matmul
+_VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
+#: C entry point -> (library, argument types).
+_ENTRIES = {
+    "repro_tcec_matmul": ("tcec_matmul", [
+        _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL,
+        _CI, _CI, _CI, ctypes.c_float, _CI, _CI, _CI, _CI, _VP]),
+    "repro_tcec_matmul_pallas": ("tcec_matmul_k2b", [
+        _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL, _CI, _CI,
+        _CI, _CI, _VP]),
+    "repro_tcec_matmul_pallas_attrs": ("tcec_matmul_k2b", [
+        _CI, _CI, _CI, _PI, _PI, _PI, _PI]),
+    "repro_tcec_staged": ("tcec_staged", [
+        _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL, _CLL,
+        _CLL, _CI, _CI, _CI, _CI, _VP]),
+    "repro_tcec_staged_attrs": ("tcec_staged", [
+        _CI, _CI, _CI, _PI, _PI, _PI, _PI]),
+}
+
+
+def _entry(name: str, passes: int):
+    """The loaded library holding C entry point ``name`` (built for
+    ``passes``) and the entry point, argument types declared."""
+    lib_name, argtypes = _ENTRIES[name]
+    lib = _build.load(lib_name, passes)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cll, cll, cll,
-                       ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, vp]
-        fn.restype = ci
+        fn.argtypes = argtypes
+        fn.restype = _CI
     return lib, fn
 
 
@@ -168,7 +213,7 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
     def launch():
         if out.numel() == 0:
             return
-        lib, fn = _entry(passes)
+        lib, fn = _entry("repro_tcec_matmul", passes)
         rc = fn(*args, _build.stream_ptr(dev))
         _build.check(lib, rc, what)
         LAUNCHES.hit()
@@ -206,3 +251,236 @@ def tcec_matmul_fused(a: torch.Tensor, b: torch.Tensor,
     return tcec_matmul_plain(a, b, pol, bias=bias, residual=residual,
                              scale=scale, activation=activation,
                              out_dtype=out_dtype)
+
+
+
+# ---------------------------------------------------------------------------
+# K2b, K5, K6: fp32 in, fp32 out, no epilogue, over the tile menu
+# ---------------------------------------------------------------------------
+
+def _tile(block, what: str) -> Tuple[int, int, int]:
+    """The compiled tile for ``block`` (``None``: the default tile)."""
+    tile = _build.DEFAULT_TILE if block is None else tuple(map(int, block))
+    if tile not in _build.TILES:
+        raise ValueError(f"{what}: tile {tile} is not compiled; the menu is "
+                         f"{_build.TILES}")
+    return tile
+
+
+def _cuda_operands(a, b, what: str) -> Tuple[int, int, int, int]:
+    nb, m, n, k = _check_shapes(a, b)
+    if b.device != a.device:
+        raise ValueError(f"{what}: b on {b.device}, a on {a.device}")
+    return nb, m, n, k
+
+
+def _out32(a: torch.Tensor, nb: int, m: int, n: int) -> torch.Tensor:
+    return torch.empty((nb, m, n) if a.dim() == 3 else (m, n),
+                       dtype=torch.float32, device=a.device)
+
+
+def _guarded(out, pol, a, b, finite=None):
+    """The host-level non-finite guard of a corrected policy's result."""
+    if not _needs_guard(pol):
+        return out
+    return nonfinite_guard(out, a.float(), b.float(), _matmul32,
+                           finite=finite)
+
+
+def _k2b_passes(pol: TcecPolicy, what: str) -> int:
+    """The library K2b runs from: the vpu arm is built into the 1-pass
+    library; the bf16 arms need their pass count."""
+    return 1 if pol.backend == "vpu" else kernel_passes(pol, what)
+
+
+def pallas_launcher(a, b, pol: TcecPolicy, block=None):
+    """Validate a K2b call and allocate its output; returns ``(out, flag,
+    launch)`` as ``launcher`` does (``launch()`` enqueues the kernel,
+    counted; ``flag`` is the guard's device int or ``None``)."""
+    what = "tcec_matmul_pallas"
+    passes = _k2b_passes(pol, what)
+    tile = _tile(block, what)
+    nb, m, n, k = _cuda_operands(a, b, what)
+    a32, b32 = a.float().contiguous(), b.float().contiguous()
+    out = _out32(a, nb, m, n)
+    flag = torch.zeros(1, dtype=torch.int32, device=a.device) \
+        if _needs_guard(pol) else None
+
+    def launch():
+        if out.numel() == 0:
+            return
+        lib, fn = _entry("repro_tcec_matmul_pallas", passes)
+        rc = fn(a32.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                None if flag is None else flag.data_ptr(), m, n, k, nb,
+                m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0,
+                m * n, passes, int(pol.backend == "vpu"), tile[0], tile[1],
+                _build.stream_ptr(a.device))
+        _build.check(lib, rc, what)
+        LAUNCHES_K2B.hit()
+
+    return out, flag, launch
+
+
+def tcec_matmul_pallas(a: torch.Tensor, b: torch.Tensor,
+                       policy: TcecPolicy | str | None = None,
+                       block: Optional[Tuple[int, int, int]] = None
+                       ) -> torch.Tensor:
+    """K2b: C = A @ B at the policy's precision, words split in registers
+    (vpu policies: a plain fp32 product).  fp32 out.
+
+    On a CUDA tensor ``block`` is a tile of ``_build.TILES`` (``None``: the
+    default tile) and the result is the same bits at every tile; a CPU
+    tensor runs the plain version, which has no tile.
+    """
+    pol = resolve_policy(policy)
+    if a.is_cuda:
+        out, flag, launch = pallas_launcher(a, b, pol, block)
+        launch()
+        return _guarded(out, pol, a, b,
+                        finite=None if flag is None else not bool(flag.item()))
+    return tcec_matmul_plain(a.float(), b.float(), pol)
+
+
+def _staged_policy(pol: TcecPolicy, what: str) -> None:
+    if pol.backend == "vpu":
+        raise ValueError(
+            f"{what} stages bf16 split words by construction; a vpu "
+            f"(plain-fp32) policy has no staged data flow — use "
+            f"tcec_matmul_pallas, which honors backend=\"vpu\" exactly")
+    if pol.word_dtype != "bf16":
+        raise ValueError(
+            f"{what} stages bf16 split words by construction; "
+            f"word_dtype={pol.word_dtype!r} policies generate per-tile-"
+            f"scaled words on the fly — use tcec_matmul_pallas")
+
+
+def _staged_words(x: torch.Tensor, n_words: int, ld: int) -> torch.Tensor:
+    """``(n_words, *x.shape[:-1], ld)`` bf16: the words of fp32 ``x``, rows
+    zero-padded to ``ld`` elements (zero splits to zero words)."""
+    if ld != x.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, ld - x.shape[-1]))
+    return torch.stack(split_words(x, n_words))
+
+
+def staged_launcher(a, b, pol: TcecPolicy, block=None,
+                    double_buffer: bool = False):
+    """Validate a K5 (K6 with ``double_buffer``) call, split the operands
+    into their word arrays on the host and allocate the output; returns
+    ``(out, launch)``.  ``launch()`` enqueues the kernel alone (counted)."""
+    what = "tcec_matmul_staged_db" if double_buffer else "tcec_matmul_staged"
+    _staged_policy(pol, what)
+    passes = kernel_passes(pol, what)
+    tile = _tile(block, what)
+    nb, m, n, k = _cuda_operands(a, b, what)
+    a32, b32 = a.float(), b.float()
+    if _needs_guard(pol):
+        a32, b32 = sanitize_nonfinite(a32), sanitize_nonfinite(b32)
+    # Rows of the word arrays are padded to 8 elements (16 bytes), so the
+    # kernel's 16-byte copies stay aligned.
+    ldk, ldn = -(-k // 8) * 8, -(-n // 8) * 8
+    aw = _staged_words(a32, pol.n_words, ldk)
+    bw = _staged_words(b32, pol.n_words, ldn)
+    out = _out32(a, nb, m, n)
+    counter = LAUNCHES_K6 if double_buffer else LAUNCHES_K5
+
+    def launch():
+        if out.numel() == 0:
+            return
+        lib, fn = _entry("repro_tcec_staged", passes)
+        rc = fn(aw.data_ptr(), bw.data_ptr(), out.data_ptr(), m, n, k, ldk,
+                ldn, nb, aw[0].numel(), bw[0].numel(),
+                m * ldk if a.dim() == 3 else 0,
+                k * ldn if b.dim() == 3 else 0, m * n, passes, tile[0],
+                tile[1], int(double_buffer), _build.stream_ptr(a.device))
+        _build.check(lib, rc, what)
+        counter.hit()
+
+    return out, launch
+
+
+def tcec_matmul_staged_plain(a: torch.Tensor, b: torch.Tensor,
+                             policy: TcecPolicy) -> torch.Tensor:
+    """The plain version of K5 and K6: the host split of both operands,
+    then the scheduled passes on the words (``policy_dot``) and the guard —
+    the arithmetic of ``tcec_matmul_pallas``'s plain version, which is why
+    K2b, K5 and K6 agree bit for bit."""
+    _staged_policy(policy, "tcec_matmul_staged")
+    return tcec_matmul_plain(a.float(), b.float(), policy)
+
+
+def _staged(a, b, policy, block, double_buffer):
+    pol = resolve_policy(policy)
+    if a.is_cuda:
+        out, launch = staged_launcher(a, b, pol, block, double_buffer)
+        launch()
+        return _guarded(out, pol, a, b)
+    return tcec_matmul_staged_plain(a, b, pol)
+
+
+def tcec_matmul_staged(a: torch.Tensor, b: torch.Tensor,
+                       policy: TcecPolicy | str | None = None,
+                       block: Optional[Tuple[int, int, int]] = None
+                       ) -> torch.Tensor:
+    """K5, the WMMA-API baseline data flow: the bf16 words are split on the
+    host and every word tile is staged in shared memory.  Same shapes and
+    (bitwise) results as ``tcec_matmul_pallas``; bf16 words only (vpu and
+    int8 policies raise ``ValueError``)."""
+    return _staged(a, b, policy, block, False)
+
+
+def tcec_matmul_staged_db(a: torch.Tensor, b: torch.Tensor,
+                          policy: TcecPolicy | str | None = None,
+                          block: Optional[Tuple[int, int, int]] = None
+                          ) -> torch.Tensor:
+    """K6: K5 with a two-slot ``cp.async`` pipeline — the copy of k tile
+    k+1 overlaps the passes of tile k.  Same shapes, policies and (bitwise)
+    results as ``tcec_matmul_staged``."""
+    return _staged(a, b, policy, block, True)
+
+
+def tcec_matmul_auto(a: torch.Tensor, b: torch.Tensor,
+                     policy: TcecPolicy | str | None = None,
+                     site: str = "auto") -> torch.Tensor:
+    """Tuner-dispatched matmul: ``repro_torch.tune.matmul_plan`` picks
+    (tile, variant) over the fused/staged/staged_db/vpu space and the call
+    goes to K2b, K5 or K6.  With ``REPRO_TUNE=off`` it is
+    ``tcec_matmul_pallas`` at the default tile.  ``measure`` times the
+    kernels on the card, so it raises for a CPU tensor."""
+    pol = resolve_policy(policy)
+    nb, m, n, k = _check_shapes(a, b)
+    if tune.mode() == "measure" and not a.is_cuda:
+        raise ValueError(
+            "tcec_matmul_auto: REPRO_TUNE=measure times the CUDA kernels; "
+            "a CPU tensor has none (use 'analytic' or 'off')")
+    plan = tune.matmul_plan(m, n, k, policy=pol, batch=nb,
+                            rhs_batched=b.dim() == 3, site=site)
+    if plan is None or plan.variant in ("fused", "vpu"):
+        return tcec_matmul_pallas(a, b, pol,
+                                  None if plan is None else plan.block)
+    if plan.variant == "staged":
+        return tcec_matmul_staged(a, b, pol, plan.block)
+    return tcec_matmul_staged_db(a, b, pol, plan.block)
+
+
+def kernel_attrs(variant: str, block, policy: TcecPolicy | str) -> dict:
+    """What the card gives the kernel of ``variant`` at tile ``block`` under
+    ``policy``'s pass count: the shared memory a block asks for (static +
+    dynamic bytes), its threads, registers per thread, and how many of its
+    blocks fit on one SM at once (the CUDA occupancy calculator)."""
+    pol = get_policy(policy)
+    tile = _tile(block, "kernel_attrs")
+    if variant in ("fused", "vpu"):
+        lib, fn = _entry("repro_tcec_matmul_pallas_attrs",
+                         _k2b_passes(pol, "kernel_attrs"))
+        which = int(variant == "vpu")
+    elif variant in ("staged", "staged_db"):
+        lib, fn = _entry("repro_tcec_staged_attrs",
+                         kernel_passes(pol, "kernel_attrs"))
+        which = int(variant == "staged_db")
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    vals = [ctypes.c_int() for _ in range(4)]
+    rc = fn(which, tile[0], tile[1], *map(ctypes.byref, vals))
+    _build.check(lib, rc, "kernel_attrs")
+    return dict(zip(("smem_bytes", "threads", "regs", "blocks_per_sm"),
+                    (v.value for v in vals)))

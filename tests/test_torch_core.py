@@ -24,6 +24,7 @@ def test_import_loads_no_jax_and_nothing_of_repro():
         "import repro_torch.kernels, repro_torch.models.convert\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.tcec_matmul\n"
+        "import repro_torch.tune, repro_torch.core.roofline\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print('LOADED', bad)\n", devices=1)

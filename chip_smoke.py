@@ -30,7 +30,16 @@ It imports nothing of JAX or of the ``repro`` package.  It
      product and qwen2-0.5b's w_gate at prefill: the chosen (variant, tile),
      every variant's best time, cuBLAS SGEMM's, the bounds, a cache hit on
      a second plan, and each kernel's shared memory and blocks per SM
-     against the port's footprint model.
+     against the port's footprint model;
+  4. drives the structured ops ``repro_torch.kernels.ops.householder``,
+     ``givens`` and ``cumsum`` (K7-K9: H, G and the triangular ones made in
+     registers) at the paper's benchmark shapes and at one shape per op
+     that fills the card, checks them against their plain versions and the
+     JAX tests' properties, holds each kernel against its plain version at
+     the JAX tests' shapes and a ragged one, checks the bf16-overflow
+     ±inf/NaN pattern, and times kernel, plain version and the staged
+     library flow (``torch.bmm`` of the materialized matrix; for the scan
+     ``torch.cumsum``).
 
 Any failed check exits non-zero.  It prints the card's name and power limit,
 a ``{"kernels": [...]}`` line, and as its last line
@@ -861,6 +870,238 @@ def check_auto(dev, results):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the structured ops (K7-K9)
+# ---------------------------------------------------------------------------
+
+#: Parity shapes: those of tests/test_kernels_structured.py plus one ragged
+#: shape per op.  householder (b, m, k); givens (b, m, k, gi, gj); cumsum
+#: (rows, n, block_n).
+HH_PARITY = [(1, 16, 16), (4, 32, 64), (8, 64, 128), (2, 128, 128),
+             (3, 20, 24)]
+GV_PARITY = [(2, 16, 32, 1, 9), (8, 64, 64, 3, 60), (4, 128, 128, 0, 127),
+             (3, 20, 24, 2, 11)]
+CS_PARITY = [(8, 256, 128), (16, 512, 256), (8, 1024, 128), (32, 128, 128),
+             (24, 96, 48)]
+#: The path's shapes: the paper's benchmarks as the JAX package defines them
+#: (benchmarks/householder.py, benchmarks/givens.py) and one shape per op
+#: that fills the card ("full", ≈ 270 MB of fp32 in and out).
+HH_PATH = {"bench_m16": (512, 16, 64), "bench_m32": (512, 32, 64),
+           "full": (16384, 32, 64)}
+GV_PATH = {"bench": (1024, 32, 32, 3, 17), "full": (32768, 32, 32, 3, 17)}
+CS_PATH = {"full": (4096, 8192, 256)}
+BF16_OVERFLOW = 3.4e38   # finite in fp32, rounds to inf in bf16
+
+
+def close(got, ref, tol: float) -> float:
+    """max |got - ref| after checking |got - ref| <= tol + tol * |ref|
+    elementwise (numpy's allclose at rtol = atol = tol); inf if not."""
+    err = (got.double() - ref.double()).abs()
+    if not bool((err <= tol + tol * ref.double().abs()).all()):
+        return float("inf")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def same_nonfinite(got, ref) -> bool:
+    """Same NaN positions, same ±inf values, finite parts within 1e-5."""
+    import torch
+    inf, fin = torch.isinf(ref), torch.isfinite(ref)
+    return (torch.equal(torch.isnan(got), torch.isnan(ref))
+            and torch.equal(got[inf], ref[inf])
+            and close(got[fin], ref[fin], 1e-5) < float("inf"))
+
+
+def structured_inputs(dev, gen):
+    """Seeded inputs of every phase-4 shape, keyed by the parity shape or
+    by the path shape's name."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    hh, gv, cs = {}, {}, {}
+    for key, (b, m, k) in {**{s: s for s in HH_PARITY}, **HH_PATH}.items():
+        v = randn(b, m)
+        hh[key] = (v / v.norm(dim=-1, keepdim=True), randn(b, m, k))
+    for key, (b, m, k, _, _) in {**{s: s for s in GV_PARITY},
+                                 **GV_PATH}.items():
+        gv[key] = (randn(b), randn(b, m, k))
+    for key, (r, n, _) in {**{s: s for s in CS_PARITY}, **CS_PATH}.items():
+        cs[key] = randn(r, n)
+    return hh, gv, cs
+
+
+def check_structured(dev, results):
+    """Drive ``repro_torch.kernels.ops.householder``/``givens``/``cumsum``
+    over the path's shapes with the counters zeroed just before and read
+    just after; check the results against the plain versions (K7/K8 1e-5,
+    K9 1e-5 max-norm) and the JAX tests' properties; then hold each kernel
+    against its plain version at the JAX tests' shapes and a ragged one
+    (K7/K8 1e-5, K9 1e-4), check the bf16-overflow ±inf/NaN pattern, and
+    time kernel, plain version, the staged library flow (materialized H or
+    G in bf16 through ``torch.bmm``) or ``torch.cumsum``, beside the bound.
+    Returns (launch counts of the path run, headline rows)."""
+    import torch
+    from repro_torch.core import fragment
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import structured as st
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    hh, gv, cs = structured_inputs(dev, gen)
+    t0 = time.perf_counter()
+
+    # The path: every op through its public entry point, counted.
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = {("householder", s): ops.householder(*hh[s]) for s in HH_PATH}
+    outs.update({("givens", s): ops.givens(*gv[s], *GV_PATH[s][3:])
+                 for s in GV_PATH})
+    outs.update({("cumsum", s): ops.cumsum(cs[s], CS_PATH[s][2])
+                 for s in CS_PATH})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect = {"householder_apply": len(HH_PATH),
+              "givens_apply": len(GV_PATH), "scan_cumsum": len(CS_PATH)}
+    got_counts = {k: v for k, v in counts.items() if v}
+    if got_counts != expect:
+        fail(f"phase 4 launch counts {got_counts} != expected {expect}")
+
+    rows, heads = [], {}
+    for (op, s), out in outs.items():
+        if op == "householder":
+            v, a = hh[s]
+            plain = st.householder_plain(v, a)
+            err = close(out, plain, 1e-5)
+            norms = (out.double().norm(dim=1) / a.double().norm(dim=1) - 1
+                     ).abs().max()
+            prop = ("column norms kept", float(norms), float(norms) < 2e-2)
+        elif op == "givens":
+            (th, a), (_, m, _, gi, gj) = gv[s], GV_PATH[s]
+            plain = st.givens_plain(th, a, gi, gj)
+            err = close(out, plain, 1e-5)
+            keep = [i for i in range(m) if i not in (gi, gj)]
+            exact = torch.equal(out[:, keep],
+                                a.to(torch.bfloat16).float()[:, keep])
+            prop = ("untouched rows == bf16(A)", float(exact), exact)
+        else:
+            x, bn = cs[s], CS_PATH[s][2]
+            plain = st.scan_cumsum_plain(x, bn)
+            rel = max_rel(out, plain)
+            err = float((out.double() - plain.double()).abs().max()) \
+                if rel < 1e-5 else float("inf")
+            oracle = max_rel(out, torch.cumsum(x.double(), dim=1))
+            prop = ("fp64 cumsum max-norm", oracle, oracle < 2e-2)
+        if err == float("inf") or not bool(torch.isfinite(out).all()) \
+                or out.shape != plain.shape or not prop[2]:
+            fail(f"phase 4 {op} {s}: kernel vs plain max abs {err:.3e}, "
+                 f"{prop[0]} {prop[1]:.3e}, shape {tuple(out.shape)}")
+        rows.append(dict(op=op, shape=s, max_abs_err=err,
+                         check=prop[0], check_value=prop[1]))
+    print(f"phase 4 path: {len(outs)} calls, launches {got_counts}; every "
+          f"result within tolerance of its plain version", flush=True)
+
+    # Parity at the JAX tests' shapes and a ragged shape (not counted).
+    for b, m, k in HH_PARITY:
+        v, a = hh[(b, m, k)]
+        if close(st.householder_apply(v, a), st.householder_plain(v, a),
+                 1e-5) == float("inf"):
+            fail(f"K7 ({b}, {m}, {k}): kernel vs plain beyond 1e-5")
+    for b, m, k, gi, gj in GV_PARITY:
+        th, a = gv[(b, m, k, gi, gj)]
+        got = st.givens_apply(th, a, gi, gj)
+        keep = [r for r in range(m) if r not in (gi, gj)]
+        if close(got, st.givens_plain(th, a, gi, gj), 1e-5) == float("inf") \
+                or not torch.equal(got[:, keep],
+                                   a.to(torch.bfloat16).float()[:, keep]):
+            fail(f"K8 ({b}, {m}, {k}, {gi}, {gj}): kernel vs plain beyond "
+                 f"1e-5 or untouched rows not bf16(A)")
+    for r, n, bn in CS_PARITY:
+        x = cs[(r, n, bn)]
+        got = st.scan_cumsum(x, bn)
+        if close(got, st.scan_cumsum_plain(x, bn), 1e-4) == float("inf") \
+                or max_rel(got, torch.cumsum(x.double(), dim=1)) >= 2e-2:
+            fail(f"K9 ({r}, {n}, {bn}): kernel vs plain beyond 1e-4 or "
+                 f"fp64 cumsum beyond 2e-2")
+    # bf16 overflow at the ragged shapes
+    v, a = (t.clone() for t in hh[HH_PARITY[-1]])
+    a[0, 4, 7], a[0, 6, 7], a[1, 9, 0] = (BF16_OVERFLOW, -BF16_OVERFLOW,
+                                          BF16_OVERFLOW)
+    th, (gi, gj) = gv[GV_PARITY[-1]][0], GV_PARITY[-1][3:]
+    x, bn = cs[CS_PARITY[-1]].clone(), CS_PARITY[-1][2]
+    x[1, 5], x[3, 40] = BF16_OVERFLOW, -BF16_OVERFLOW
+    for name, got, plain in (
+            ("K7", st.householder_apply(v, a), st.householder_plain(v, a)),
+            ("K8", st.givens_apply(th, a, gi, gj),
+             st.givens_plain(th, a, gi, gj)),
+            ("K9", st.scan_cumsum(x, bn), st.scan_cumsum_plain(x, bn))):
+        if bool(torch.isfinite(plain).all()) or not same_nonfinite(got,
+                                                                   plain):
+            fail(f"{name}: bf16 overflow gives another ±inf/NaN pattern "
+                 f"than the plain version's")
+    print(f"phase 4 parity: K7 {len(HH_PARITY)}, K8 {len(GV_PARITY)}, K9 "
+          f"{len(CS_PARITY)} shapes within tolerance; bf16 overflow gives "
+          f"the plain version's ±inf/NaN pattern", flush=True)
+
+    # Timings (kernel alone, CUDA events).
+    bf = torch.bfloat16
+    timed = [("householder_apply", s, HH_PATH[s]) for s in HH_PATH] + \
+        [("givens_apply", s, GV_PATH[s]) for s in GV_PATH] + \
+        [("scan_cumsum", s, CS_PATH[s]) for s in CS_PATH]
+    for (kname, s, shape), row in zip(timed, rows):
+        if kname == "householder_apply":
+            v, a = hh[s]
+            b, m, k = shape
+            _, launch = st.householder_launcher(v, a)
+            plain = functools.partial(st.householder_plain, v, a)
+            make = (lambda: fragment.householder(v).to(bf))
+            n_bytes = 4 * (v.numel() + 2 * a.numel())
+            flops = 2.0 * b * m * m * k
+        elif kname == "givens_apply":
+            th, a = gv[s]
+            b, m, k, gi, gj = shape
+            _, launch = st.givens_launcher(th, a, gi, gj)
+            plain = functools.partial(st.givens_plain, th, a, gi, gj)
+            make = (lambda: st.givens_matrices(th, m, gi, gj).to(bf))
+            n_bytes = 4 * (th.numel() + 2 * a.numel())
+            flops = 2.0 * b * m * m * k
+        else:
+            x = cs[s]
+            r, n, bn = shape
+            _, launch = st.scan_launcher(x, bn)
+            plain = functools.partial(st.scan_cumsum_plain, x, bn)
+            make = None
+            n_bytes = 4 * 2 * x.numel()
+            flops = 2.0 * r * n * bn
+        ms = time_ms(launch)
+        plain_ms = time_ms(plain, queued=False)
+        if make is None:
+            lib = "torch.cumsum fp32"
+            lib_ms = time_ms(lambda: torch.cumsum(x, dim=1))
+            make_ms = None
+        else:
+            lib = "torch.bmm bf16 (materialized)"
+            mat, a_bf = make(), a.to(bf)
+            lib_ms = time_ms(lambda: torch.bmm(mat, a_bf))
+            make_ms = time_ms(make)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        row.update(kernel=kname, dims=list(shape), ms=ms, plain_ms=plain_ms,
+                   library=lib, library_ms=lib_ms,
+                   materialize_ms=make_ms, bound_ms=b_ms, bound_by=b_by,
+                   launches=counts[kname])
+        print(f"{kname:17s} {s:9s} {str(shape):24s}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, {lib} {lib_ms:.4f}"
+              + ("" if make_ms is None else f" + materialize {make_ms:.4f}")
+              + f", bound {b_ms:.4f} {b_by}"
+              + ("" if s == "full" else "; launch cost sets this shape's "
+                 "time") + f") | {row['check']} {row['check_value']:.3e}",
+              flush=True)
+        if s == "full":
+            heads[kname] = row
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
+    results["structured"] = dict(rows=rows, launches=got_counts)
+    return counts, heads
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parity-only", action="store_true",
@@ -921,12 +1162,15 @@ def main(argv=None) -> int:
 
     info = check_serve(dev, results)
     auto_launches = check_auto(dev, results)
+    structured_launches, structured_heads = check_structured(dev, results)
+    heads.update(structured_heads)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
     # kernel -> (source, TPU kernel it replaces, launches on its path: the
     # serving run (phase 2) for K2-K4, the tcec_matmul_auto run (phase 3)
-    # for K2b, K5 and K6)
+    # for K2b, K5 and K6, the structured ops' run (phase 4) for K7-K9)
     mm = "src/repro_torch/csrc/tcec_matmul.cu"
     staged = "src/repro_torch/csrc/tcec_staged.cu"
+    fragments = "src/repro_torch/csrc/structured.cu"
     meta = {
         "tcec_matmul": (mm, "src/repro/kernels/tcec_matmul.py:502",
                         info["launches"]),
@@ -943,6 +1187,13 @@ def main(argv=None) -> int:
         "tcec_matmul_staged_db": (staged,
                                   "src/repro/kernels/tcec_matmul.py:351",
                                   auto_launches),
+        "householder_apply": (fragments,
+                              "src/repro/kernels/structured.py:42",
+                              structured_launches),
+        "givens_apply": (fragments, "src/repro/kernels/structured.py:78",
+                         structured_launches),
+        "scan_cumsum": (fragments, "src/repro/kernels/structured.py:119",
+                        structured_launches),
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():

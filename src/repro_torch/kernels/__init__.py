@@ -12,7 +12,11 @@ each with its plain PyTorch version and a launch counter.
     dispatches to K2b, K5 or K6 through ``repro_torch.tune``;
   * K3 ``flash_attention.flash_attention`` — prefill attention;
   * K4 ``repro_torch.serving.paged_attention.paged_decode_attention_kernel``
-    — paged decode attention.
+    — paged decode attention;
+  * K7 ``structured.householder_apply``, K8 ``structured.givens_apply`` and
+    K9 ``structured.scan_cumsum`` — the structured-fragment ops (H, G and
+    the triangular ones made in registers, never stored), reached through
+    ``ops.householder``, ``ops.givens`` and ``ops.cumsum``.
 
 ``launch_counts()`` / ``reset_launch_counts()`` read and zero every
 kernel's counter (a wrapper counts only its own kernel launches).
@@ -25,7 +29,7 @@ from ._build import COUNTERS
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last reset."""
     # Importing the wrappers registers every counter.
-    from . import flash_attention, tcec_matmul  # noqa: F401
+    from . import flash_attention, structured, tcec_matmul  # noqa: F401
     from repro_torch.serving import paged_attention  # noqa: F401
     return {name: c.n for name, c in COUNTERS.items()}
 

@@ -3,10 +3,10 @@ with a plain C interface -> ctypes).
 
 ``load(name, passes)`` compiles every library of ``LIBS`` at first use into
 ``<repo>/build/kernels/<hash>/lib<name>_p<passes>.so``, one library per
-(library, pass count) and one ``nvcc`` each, all started together; the
-directory is keyed by a hash of the sources and flags.  It then loads the
-library asked for.  Nothing is built or started when the module is
-imported.  Each library's compiler output (``-Xptxas -v``:
+entry of ``LIBS`` and pass count the entry names, one ``nvcc`` each, all
+started together; the directory is keyed by a hash of the sources and
+flags.  It then loads the library asked for.  Nothing is built or started
+when the module is imported.  Each library's compiler output (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside it as ``<lib>.log``, and
 the compile seconds of the last build in ``build_seconds.json``.
 
@@ -28,18 +28,20 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-#: library -> (source in ``csrc``, extra nvcc flags).  K2 and K2b share one
-#: source and build as two libraries, so they compile in parallel.
-LIBS = {
-    "tcec_matmul": ("tcec_matmul.cu", ()),
-    "tcec_matmul_k2b": ("tcec_matmul.cu", ("-DREPRO_K2B",)),
-    "tcec_staged": ("tcec_staged.cu", ()),
-    "flash_attention": ("flash_attention.cu", ()),
-    "paged_attention": ("paged_attention.cu", ()),
-}
-#: Pass counts the kernels are built for (bf16x1, bf16x3, bf16x6); each is
-#: its own library so the builds run in parallel.
+#: Pass counts the TCEC kernels are built for (bf16x1, bf16x3, bf16x6); each
+#: is its own library so the builds run in parallel.
 PASSES = (1, 3, 6)
+#: library -> (source in ``csrc``, extra nvcc flags, the pass counts it is
+#: built for).  K2 and K2b share one source and build as two libraries, so
+#: they compile in parallel; K7-K9 (``structured``) run one bf16 pass.
+LIBS = {
+    "tcec_matmul": ("tcec_matmul.cu", (), PASSES),
+    "tcec_matmul_k2b": ("tcec_matmul.cu", ("-DREPRO_K2B",), PASSES),
+    "tcec_staged": ("tcec_staged.cu", (), PASSES),
+    "flash_attention": ("flash_attention.cu", (), PASSES),
+    "paged_attention": ("paged_attention.cu", (), PASSES),
+    "structured": ("structured.cu", (), (1,)),
+}
 #: The tile menu of K2b, K5 and K6, (bm, bn, bk) — the list of
 #: ``csrc/tcec_tile.cuh::dispatch``.  Every warp owns a 32 x 32 output tile.
 TILES = ((32, 32, 32), (64, 64, 32), (128, 64, 32), (128, 128, 32))
@@ -92,8 +94,8 @@ def build_all() -> Path:
     jobs = {}
     t0 = time.perf_counter()
     try:
-        for name, (source, defines) in LIBS.items():
-            for passes in PASSES:
+        for name, (source, defines, pass_counts) in LIBS.items():
+            for passes in pass_counts:
                 lib = f"lib{name}_p{passes}"
                 so = out / f"{lib}.so"
                 if so.exists():

@@ -25,6 +25,8 @@ def test_import_loads_no_jax_and_nothing_of_repro():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.tcec_matmul\n"
         "import repro_torch.tune, repro_torch.core.roofline\n"
+        "import repro_torch.core.fragment, repro_torch.kernels.structured\n"
+        "import repro_torch.kernels.ops\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print('LOADED', bad)\n", devices=1)

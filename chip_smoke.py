@@ -11,10 +11,13 @@ It imports nothing of JAX or of the ``repro`` package.  It
      together);
   1. holds each kernel against its plain PyTorch version on the card at the
      shapes its path gives it — the TCEC matmuls (K2, K2b, K5, K6) also
-     against an fp64 oracle, and K2b, K5 and K6 bitwise against each other
-     over the whole tile menu — and times kernel, plain version and a
-     PyTorch library call (a yardstick the port never calls) with CUDA
-     events;
+     against an fp64 oracle, K2 also at ragged shapes under every pair of
+     operand dtypes and twice for the same bits, with the plan it ran
+     (tile, k splits) and the passes it ran, and K2b, K5 and K6 bitwise
+     against each other over the whole tile menu — and times kernel, plain
+     version and a PyTorch library call (a yardstick the port never calls)
+     with CUDA events (K2 also with the L2 cache flushed before each call,
+     as the decode tick finds its weights);
   2. serves qwen2-0.5b at full width (24 layers, random bf16 weights from a
      seed) through ``PagedServingEngine`` under ``bf16x6_pallas``, checks
      the launch counters and every request's output, then serves the same
@@ -24,7 +27,8 @@ It imports nothing of JAX or of the ``repro`` package.  It
      paths differ only in fp32 summation order), measures how far a mere
      change of summation order moves the twin's logits on the bf16 weights
      (the witness the bf16 limit is set from) and how both gaps grow with
-     depth, and profiles three decode ticks of the kernel path;
+     depth, and profiles three decode ticks of the kernel path (device
+     time by kernel, K2's share, the device's idle share);
   3. drives ``tcec_matmul_auto`` under ``REPRO_TUNE=measure`` (fresh plan
      cache under ``build/``) over the paper's batched-SGEMM sweep, a 4096^3
      product and qwen2-0.5b's w_gate at prefill: the chosen (variant, tile),
@@ -96,11 +100,12 @@ def bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, reps: int = 20, queued: bool = True) -> float:
+def time_ms(fn, reps: int = 20, queued: bool = True, flush=None) -> float:
     """Median device time of ``fn`` over ``reps`` calls (CUDA events around
     each call).  With ``queued`` the calls are enqueued behind a sleeping
     kernel so host overhead does not show up as device time; ``fn`` must
-    then not synchronise."""
+    then not synchronise.  ``flush`` (see ``l2_flush``) runs before each
+    call, outside the events, so the call finds the L2 cache cold."""
     import torch
     for _ in range(3):
         fn()
@@ -110,12 +115,23 @@ def time_ms(fn, reps: int = 20, queued: bool = True) -> float:
     if queued:
         torch.cuda._sleep(200_000_000)
     for s, e in ev:
+        if flush is not None:
+            flush()
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     ts = sorted(s.elapsed_time(e) for s, e in ev)
     return ts[len(ts) // 2]
+
+
+def l2_flush(dev):
+    """A function that reads 256 MB (five times the H100's 50 MB L2) on
+    the current stream, so what a call reads next comes from HBM, as the
+    decode tick's weights do (24 layers stream ≈ 715 MB per tick)."""
+    import torch
+    buf = torch.ones(64 << 20, dtype=torch.float32, device=dev)
+    return lambda: buf.sum()
 
 
 def on_grid(x, gen):
@@ -134,30 +150,86 @@ def on_grid(x, gen):
 # Phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_k2(dev, rows):
+#: K2's layer shapes (k, n) in phase 1, with the lhs dtype, bias and
+#: activation the qwen2 path gives them under bf16x6_pallas.
+K2_LAYERS = {(896, 896): ("wo", "float32", False, None),
+             (896, 128): ("wk/wv", "bfloat16", True, None),
+             (896, 4864): ("w_gate", "bfloat16", False, "silu"),
+             (4864, 896): ("w_down", "bfloat16", False, None)}
+K2_M = (4, 256)
+K2_POLICIES = ("bf16x1", "bf16x3", "bf16x6")
+K2_HEADLINE = (4, 896, 4864, "bf16x6")
+#: Ragged K2 shapes (m, k, n): m of 1, 3 and 17, n not a multiple of 8, k
+#: not a multiple of 16; each under every dtype pair of lhs and weights.
+K2_RAGGED = ((1, 200, 100), (3, 905, 131), (17, 72, 250))
+
+
+def k2_inputs(dev, gen, m, k, n, a_dt, has_bias):
+    """Seeded operands of a K2 layer row: fp32 (a32, b32) for the fp64
+    oracle, and the path's (x, w, bias) with bf16 weights."""
+    import torch
+    a32 = torch.randn(m, k, generator=gen, device=dev)
+    b32 = torch.randn(k, n, generator=gen, device=dev)
+    w = (torch.randn(k, n, generator=gen, device=dev)
+         / k ** 0.5).to(torch.bfloat16)
+    x = torch.randn(m, k, generator=gen, device=dev).to(getattr(torch, a_dt))
+    bias = (torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+            if has_bias else None)
+    return a32, b32, w, x, bias
+
+
+def same_bits(x, y) -> bool:
+    import torch
+    return x.dtype == y.dtype and torch.equal(
+        x.contiguous().view(torch.int16 if x.dtype == torch.bfloat16
+                            else torch.int32),
+        y.contiguous().view(torch.int16 if y.dtype == torch.bfloat16
+                            else torch.int32))
+
+
+def k2_times(dev, tm, pol, x, w, kw, flush):
+    """K2's device time at warm L2 (the weights cached by the previous
+    call, the way the other kernels are timed) and cold (L2 flushed before
+    each call, as on the decode tick), its plan, and two library times on
+    the same operands: fp32 ``torch.matmul`` (the same function, but it
+    reads the bf16 weights widened to fp32, twice K2's bytes) and bf16
+    ``torch.matmul`` with fp32 accumulate (K2's weight bytes; the lhs
+    rounded to bf16 where it is fp32, which is less work than K2's)."""
+    import torch
+    _, _, launch = tm.launcher(x, w, pol, **kw)
+    a_lib, b_lib = x.float(), w.float()
+    a_bf = x.to(torch.bfloat16)
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        bf16_ms = time_ms(lambda: torch.matmul(a_bf, w))
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = reduced
+    return dict(ms=time_ms(launch), cold_ms=time_ms(launch, flush=flush),
+                library_ms=time_ms(lambda: torch.matmul(a_lib, b_lib)),
+                library_bf16_ms=bf16_ms, plan=launch.plan)
+
+
+def check_k2(dev, rows, flush):
+    """K2 at phase 1's layer shapes x m in {4, 256} under every policy:
+    fp32 operands against the fp64 oracle, the path's dtypes and epilogue
+    against the plain version (1e-5 max-norm), the same bits on a second
+    call; each row's plan (tile, splits, blocks) and the passes it runs,
+    checked against the count the library was built to run; times.  Then
+    the ragged shapes under every dtype pair, and non-finite inputs."""
     import torch
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import tcec_matmul as tm
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    # (k, n) of the layer shapes, with the lhs dtype, bias and activation
-    # the qwen2 path gives them under bf16x6_pallas.
-    layers = {(896, 896): ("wo", torch.float32, False, None),
-              (896, 128): ("wk/wv", torch.bfloat16, True, None),
-              (896, 4864): ("w_gate", torch.bfloat16, False, "silu"),
-              (4864, 896): ("w_down", torch.bfloat16, False, None)}
     headline = None
-    for m in (4, 256):
-        for (k, n), (layer, a_dt, has_bias, act) in layers.items():
-            a32 = torch.randn(m, k, generator=gen, device=dev)
-            b32 = torch.randn(k, n, generator=gen, device=dev)
-            w = (torch.randn(k, n, generator=gen, device=dev)
-                 / k ** 0.5).to(torch.bfloat16)
-            x = torch.randn(m, k, generator=gen, device=dev).to(a_dt)
-            bias = (torch.randn(n, generator=gen, device=dev)
-                    .to(torch.bfloat16) if has_bias else None)
+    for m in K2_M:
+        for (k, n), (layer, a_dt, has_bias, act) in K2_LAYERS.items():
+            a32, b32, w, x, bias = k2_inputs(dev, gen, m, k, n, a_dt,
+                                             has_bias)
             oracle = (a32.double() @ b32.double())
-            for name in ("bf16x1", "bf16x3", "bf16x6"):
+            for name in K2_POLICIES:
                 pol = get_policy(name)
                 # fp32 operands: accuracy against the fp64 oracle.
                 got = tm.tcec_matmul_fused(a32, b32, pol)
@@ -166,41 +238,133 @@ def check_k2(dev, rows):
                     fail(f"K2 {name} m={m} k={k} n={n}: fp64-oracle error "
                          f"{err_o:.3e} >= {ORACLE_TOL[name]:.0e}")
                 err_p32 = max_rel(got, tm.tcec_matmul_plain(a32, b32, pol))
+                same = same_bits(got, tm.tcec_matmul_fused(a32, b32, pol))
                 # The path's dtypes and epilogue: against the plain version.
                 kw = dict(bias=bias, activation=act)
                 got = tm.tcec_matmul_fused(x, w, pol, **kw)
+                same = same and same_bits(got, tm.tcec_matmul_fused(
+                    x, w, pol, **kw))
                 plain = tm.tcec_matmul_plain(x, w, pol, **kw)
                 err_p = max(max_rel(got, plain), err_p32)
                 if err_p >= 1e-5:
                     fail(f"K2 {name} m={m} k={k} n={n}: kernel vs plain "
                          f"{err_p:.3e} >= 1e-5")
-                _, _, launch = tm.launcher(x, w, pol, bias=bias,
-                                           activation=act)
-                ms = time_ms(launch)
+                if not same:
+                    fail(f"K2 {name} m={m} k={k} n={n}: two calls gave "
+                         f"different bits")
+                run = tm.k2_passes(pol, x.dtype, w.dtype)
+                lib, fn = tm._entry("repro_tcec_matmul_passes_run",
+                                    pol.passes)
+                if fn(int(x.dtype == torch.bfloat16), 1) != len(run):
+                    fail(f"K2 {name} {layer}: the library runs another "
+                         f"number of passes than {run}")
+                t = k2_times(dev, tm, pol, x, w, kw, flush)
                 plain_ms = time_ms(
                     lambda: tm.tcec_matmul_plain(x, w, pol, **kw),
                     queued=False)
-                a_lib, b_lib = x.float(), w.float()
-                lib_ms = time_ms(lambda: torch.matmul(a_lib, b_lib))
                 n_bytes = (x.numel() * x.element_size()
                            + w.numel() * w.element_size() + m * n * 4
                            + (n * 2 if has_bias else 0))
-                b_ms, b_by = bound_ms(n_bytes, 2.0 * m * n * k * pol.passes)
+                b_ms, b_by = bound_ms(n_bytes, 2.0 * m * n * k * len(run))
+                plan = t["plan"]
                 row = dict(kernel="tcec_matmul", layer=layer, m=m, k=k, n=n,
-                           policy=name, a_dtype=str(a_dt).split(".")[-1],
-                           bias=has_bias, activation=act,
+                           policy=name, a_dtype=a_dt, bias=has_bias,
+                           activation=act, tile=plan.tile,
+                           splits=plan.splits, chunk=plan.chunk,
+                           blocks=plan.blocks, passes_run=[list(p)
+                                                           for p in run],
                            oracle_err=err_o, max_abs_err=float(
                                (got.double() - plain.double()).abs().max()),
-                           rel_err_vs_plain=err_p, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                           rel_err_vs_plain=err_p, bitwise_repeat=same,
+                           ms=t["ms"], cold_ms=t["cold_ms"],
+                           plain_ms=plain_ms, library_ms=t["library_ms"],
+                           library_bf16_ms=t["library_bf16_ms"],
+                           bound_ms=b_ms, bound_by=b_by)
                 rows.append(row)
                 print(f"K2 {layer:7s} m={m:3d} k={k:4d} n={n:4d} {name}: "
-                      f"oracle {err_o:.2e} plain {err_p:.2e} | "
-                      f"{ms:.4f} ms (plain {plain_ms:.4f}, fp32 matmul "
-                      f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by})", flush=True)
-                if (m, k, n, name) == (4, 896, 4864, "bf16x6"):
+                      f"{plan.tile} x{plan.splits} ({plan.blocks} blocks), "
+                      f"passes {run} | oracle {err_o:.2e} plain {err_p:.2e}"
+                      f" repeat bitwise | {t['ms']:.4f} ms, cold L2 "
+                      f"{t['cold_ms']:.4f} (plain {plain_ms:.4f}, fp32 "
+                      f"matmul {t['library_ms']:.4f}, bf16 matmul "
+                      f"{t['library_bf16_ms']:.4f}, bound {b_ms:.4f} "
+                      f"{b_by})", flush=True)
+                if (m, k, n, name) == K2_HEADLINE:
                     headline = row
+    check_k2_ragged(dev, gen)
     return headline
+
+
+def check_k2_ragged(dev, gen):
+    """K2 at the ragged shapes under every dtype pair and policy, with an
+    epilogue: within 1e-5 of the plain version (fp32 out; a bf16 store is
+    the cast of the kernel's fp32 result, bit for bit), the fp64 oracle on
+    fp32 operands, the same bits on a second call; then non-finite inputs
+    give the plain version's ±inf/NaN pattern."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import tcec_matmul as tm
+    bf, f32 = torch.bfloat16, torch.float32
+    #: (lhs, weights, bias dtype, activation, residual dtype, out dtype)
+    combos = ((bf, bf, bf, "gelu", f32, bf), (f32, bf, None, "silu", None,
+                                              None),
+              (bf, f32, f32, "relu", bf, None), (f32, f32, None, None, None,
+                                                 None))
+    n_checked = 0
+    for m, k, n in K2_RAGGED:
+        for a_dt, w_dt, bias_dt, act, res_dt, out_dt in combos:
+            x = torch.randn(m, k, generator=gen, device=dev).to(a_dt)
+            w = torch.randn(k, n, generator=gen, device=dev).to(w_dt)
+            kw = dict(
+                bias=None if bias_dt is None else torch.randn(
+                    n, generator=gen, device=dev).to(bias_dt),
+                residual=None if res_dt is None else torch.randn(
+                    m, n, generator=gen, device=dev).to(res_dt),
+                activation=act, out_dtype=out_dt)
+            oracle = x.double() @ w.double()
+            for name in K2_POLICIES:
+                pol = get_policy(name)
+                got = tm.tcec_matmul_fused(x, w, pol, **kw)
+                kw32 = dict(kw, out_dtype=None)
+                got32 = tm.tcec_matmul_fused(x, w, pol, **kw32)
+                err = max_rel(got32, tm.tcec_matmul_plain(x, w, pol, **kw32))
+                # A bf16 store is the RNE cast of the kernel's own fp32
+                # result, bit for bit (the plain version's fp32 result
+                # differs in summation order, so its cast may differ by
+                # one bf16 ulp).
+                cast = got32.to(out_dt) if out_dt is not None else got32
+                if err >= 1e-5 or not same_bits(got, cast) or not same_bits(
+                        got, tm.tcec_matmul_fused(x, w, pol, **kw)):
+                    fail(f"K2 ragged {name} ({m}, {k}, {n}) {a_dt}/{w_dt}: "
+                         f"kernel vs plain {err:.3e} (limit 1e-5), store "
+                         f"cast {same_bits(got, cast)}, repeat bitwise")
+                if a_dt == w_dt == f32 and max_rel(
+                        tm.tcec_matmul_fused(x, w, pol), oracle) \
+                        >= ORACLE_TOL[name]:
+                    fail(f"K2 ragged {name} ({m}, {k}, {n}): fp64 oracle")
+                n_checked += 1
+    # Non-finite values in the fp32 lhs, then in bf16 weights (both halves
+    # of a packed pair) against a bf16 lhs, at decode and prefill tiles.
+    for m, a_dt in ((3, f32), (40, bf)):
+        x = torch.randn(m, 905, generator=gen, device=dev).to(a_dt)
+        w = torch.randn(905, 136, generator=gen, device=dev).to(bf)
+        if a_dt == f32:
+            x[1, 2], x[2, 5] = float("inf"), float("nan")
+        else:
+            w[7, 4], w[7, 5], w[900, 130] = (float("inf"), float("-inf"),
+                                             float("nan"))
+        for name in K2_POLICIES:
+            pol = get_policy(name)
+            got = tm.tcec_matmul_fused(x, w, pol, activation="tanh")
+            plain = tm.tcec_matmul_plain(x, w, pol, activation="tanh")
+            if bool(torch.isfinite(plain).all()) or not same_nonfinite(
+                    got, plain):
+                fail(f"K2 {name} m={m}: non-finite inputs give another "
+                     f"pattern than the plain version's")
+    print(f"K2 ragged: {n_checked} (shape, dtypes, policy) rows within "
+          f"tolerance of the plain version and the same bits twice; "
+          f"non-finite inputs give the plain version's ±inf/NaN pattern",
+          flush=True)
 
 
 def check_k3(dev, rows):
@@ -513,13 +677,23 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3):
             us = e.self_cuda_time_total
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3 / ticks
     busy = sum(by_kernel.values())
+    wall = wall_ms / ticks
+    k2 = sum(v for key, v in by_kernel.items() if "k2_kernel" in key)
+    k2_reduce = sum(v for key, v in by_kernel.items() if "k2_reduce" in key)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    print(f"decode tick profile ({ticks} ticks): wall {wall_ms / ticks:.2f} "
-          f"ms/tick, device busy {busy:.2f} ms/tick "
-          f"({100 * busy / (wall_ms / ticks):.1f}%)", flush=True)
+    print(f"decode tick profile ({ticks} ticks): wall {wall:.2f} ms/tick, "
+          f"device busy {busy:.2f} ms/tick ({100 * busy / wall:.1f}%, idle "
+          f"{100 * (1 - busy / wall):.1f}%); K2 {k2:.3f} + its reduce "
+          f"{k2_reduce:.3f} ms/tick ({100 * (k2 + k2_reduce) / busy:.1f}% "
+          f"of busy, {100 * (k2 + k2_reduce) / wall:.1f}% of the tick)",
+          flush=True)
     for name, ms in top:
         print(f"  {ms:8.3f} ms/tick  {name[:100]}")
-    return dict(wall_ms_per_tick=wall_ms / ticks, busy_ms_per_tick=busy,
+    return dict(wall_ms_per_tick=wall, busy_ms_per_tick=busy,
+                idle_share=1 - busy / wall, k2_ms_per_tick=k2,
+                k2_reduce_ms_per_tick=k2_reduce,
+                k2_share_of_busy=(k2 + k2_reduce) / busy,
+                k2_share_of_tick=(k2 + k2_reduce) / wall,
                 top_kernels_ms_per_tick=top)
 
 
@@ -612,8 +786,12 @@ def check_serve(dev, results):
               "flash_attention": cfg.n_layers * st["prefills"],
               "paged_attention": cfg.n_layers * st["decode_ticks"]}
     launched = {k: v for k, v in info_k["launches"].items() if v}
-    if launched != expect:
-        fail(f"launch counts {info_k['launches']} != expected {expect}")
+    # K2's reduce kernel runs once per K2 call with more than one split
+    # (every decode call, some prefill calls).
+    reduces = launched.pop("tcec_matmul_reduce", 0)
+    if launched != expect or not 0 < reduces <= expect["tcec_matmul"]:
+        fail(f"launch counts {info_k['launches']} != expected {expect} "
+             f"(and 0 < tcec_matmul_reduce <= tcec_matmul)")
     if sorted(out_k) != list(range(len(prompts))) or any(
             len(v) != N_NEW for v in out_k.values()):
         fail(f"bf16x6_pallas: outputs {[len(v) for v in out_k.values()]}")
@@ -1127,7 +1305,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s -> {build}",
           flush=True)
@@ -1148,7 +1326,7 @@ def main(argv=None) -> int:
     results = {"card": card, "torch": torch.__version__,
                "build": build_info}
     rows = []
-    heads = {"tcec_matmul": check_k2(dev, rows),
+    heads = {"tcec_matmul": check_k2(dev, rows, l2_flush(dev)),
              "flash_attention": check_k3(dev, rows),
              "paged_attention": check_k4(dev, rows),
              **check_family(dev, rows)}
@@ -1172,7 +1350,8 @@ def main(argv=None) -> int:
     staged = "src/repro_torch/csrc/tcec_staged.cu"
     fragments = "src/repro_torch/csrc/structured.cu"
     meta = {
-        "tcec_matmul": (mm, "src/repro/kernels/tcec_matmul.py:502",
+        "tcec_matmul": ("src/repro_torch/csrc/tcec_matmul_k2.cu",
+                        "src/repro/kernels/tcec_matmul.py:502",
                         info["launches"]),
         "tcec_matmul_pallas": (mm, "src/repro/kernels/tcec_matmul.py:73",
                                auto_launches),
@@ -1205,6 +1384,8 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    print(f"chip_smoke: build and phases 1-4 in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,11 +32,10 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: is its own library so the builds run in parallel.
 PASSES = (1, 3, 6)
 #: library -> (source in ``csrc``, extra nvcc flags, the pass counts it is
-#: built for).  K2 and K2b share one source and build as two libraries, so
-#: they compile in parallel; K7-K9 (``structured``) run one bf16 pass.
+#: built for).  K7-K9 (``structured``) run one bf16 pass.
 LIBS = {
-    "tcec_matmul": ("tcec_matmul.cu", (), PASSES),
-    "tcec_matmul_k2b": ("tcec_matmul.cu", ("-DREPRO_K2B",), PASSES),
+    "tcec_matmul": ("tcec_matmul_k2.cu", (), PASSES),
+    "tcec_matmul_k2b": ("tcec_matmul.cu", (), PASSES),
     "tcec_staged": ("tcec_staged.cu", (), PASSES),
     "flash_attention": ("flash_attention.cu", (), PASSES),
     "paged_attention": ("paged_attention.cu", (), PASSES),
@@ -45,7 +44,7 @@ LIBS = {
 #: The tile menu of K2b, K5 and K6, (bm, bn, bk) — the list of
 #: ``csrc/tcec_tile.cuh::dispatch``.  Every warp owns a 32 x 32 output tile.
 TILES = ((32, 32, 32), (64, 64, 32), (128, 64, 32), (128, 128, 32))
-#: K2's tile, and K2b's/K5's/K6's when no tile is asked for.
+#: K2b's/K5's/K6's tile when no tile is asked for.
 DEFAULT_TILE = (64, 64, 32)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

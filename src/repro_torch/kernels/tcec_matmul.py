@@ -6,15 +6,18 @@ arm).  Each wrapper launches its CUDA kernel on a CUDA tensor and runs its
 plain PyTorch version on a CPU tensor; there is no fallback from one to the
 other.
 
-  * ``tcec_matmul_fused`` (K2, ``csrc/tcec_matmul.cu``) — the epilogue
+  * ``tcec_matmul_fused`` (K2, ``csrc/tcec_matmul_k2.cu``) — the epilogue
     (scale, bias, activation, residual, out dtype) fused into the store; the
     serving path's dense layers.  Any float input dtype: the kernel reads
     fp32 or bf16 operands at their own dtype — bf16 weights are never
-    widened on the host.
-  * ``tcec_matmul_pallas`` (K2b, same source) — no epilogue, operands cast
-    to fp32, fp32 out, over the tile menu (``_build.TILES``); words made in
-    registers (the paper's WMMAe data flow); the vpu arm is a plain FFMA
-    product (the paper's "FP32 SIMT" baseline).
+    widened on the host.  Designed for decode shapes: ``k2_plan`` picks its
+    tile from m and splits k across blocks so that a call fills the card;
+    the split partials are added in split order by a second kernel that
+    the same call enqueues.
+  * ``tcec_matmul_pallas`` (K2b, ``csrc/tcec_matmul.cu``) — no epilogue,
+    operands cast to fp32, fp32 out, over the tile menu (``_build.TILES``);
+    words made in registers (the paper's WMMAe data flow); the vpu arm is a
+    plain FFMA product (the paper's "FP32 SIMT" baseline).
   * ``tcec_matmul_staged`` (K5, ``csrc/tcec_staged.cu``) and
     ``tcec_matmul_staged_db`` (K6) — the WMMA-API baseline: the host splits
     both operands into bf16 word arrays and the kernel stages every word
@@ -37,6 +40,7 @@ one host sync per call under a corrected policy.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -54,9 +58,11 @@ from .tcec_core import dot_params, kernel_passes, policy_dot
 __all__ = ["tcec_matmul_fused", "tcec_matmul_plain", "tcec_matmul_pallas",
            "tcec_matmul_staged", "tcec_matmul_staged_db",
            "tcec_matmul_staged_plain", "tcec_matmul_auto", "kernel_attrs",
-           "LAUNCHES"]
+           "k2_plan", "k2_passes", "K2Plan", "LAUNCHES"]
 
 LAUNCHES = _build.counter("tcec_matmul")
+#: K2's second kernel, which adds the split partials (calls with splits > 1).
+LAUNCHES_REDUCE = _build.counter("tcec_matmul_reduce")
 LAUNCHES_K2B = _build.counter("tcec_matmul_pallas")
 LAUNCHES_K5 = _build.counter("tcec_matmul_staged")
 LAUNCHES_K6 = _build.counter("tcec_matmul_staged_db")
@@ -130,13 +136,77 @@ def tcec_matmul_plain(a: torch.Tensor, b: torch.Tensor, policy: TcecPolicy,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K2's plan
+# ---------------------------------------------------------------------------
+
+#: K2's tiles (``csrc/tcec_matmul_k2.cu``): name -> (code, rows, columns).
+K2_TILES = {"decode": (0, 8, 32), "prefill": (1, 64, 64)}
+#: The largest m that takes the decode tile.
+K2_DECODE_M = 16
+#: K2 aims at this many blocks per SM.
+K2_BLOCKS_PER_SM = 2
+#: The k granularity of a split (one mma.sync k step).
+K2_K_STEP = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class K2Plan:
+    """How K2 runs a call: ``tile`` (rows ``bm`` x columns ``bn`` per
+    block), ``splits`` k ranges of ``chunk`` elements each (split s sums k
+    in [s * chunk, min(k, (s + 1) * chunk))); ``blocks`` in all."""
+    tile: str
+    bm: int
+    bn: int
+    splits: int
+    chunk: int
+    blocks: int
+
+
+def k2_plan(m: int, n: int, k: int, batch: int = 1, sms: int = 132
+            ) -> K2Plan:
+    """K2's plan for a (batch, m, k) @ (k, n) call on a card of ``sms``
+    SMs: the decode tile up to m = 16, else the prefill tile; then as many
+    splits of k (each a multiple of 16 elements, at least one k step) as
+    bring the grid to at least ``K2_BLOCKS_PER_SM * sms`` blocks, where k
+    allows.  A plain function of its arguments."""
+    tile = "decode" if m <= K2_DECODE_M else "prefill"
+    _, bm, bn = K2_TILES[tile]
+    tiles = -(-n // bn) * -(-m // bm) * batch
+    steps = max(1, -(-k // K2_K_STEP))
+    want = -(-K2_BLOCKS_PER_SM * sms // tiles)
+    splits = max(1, min(want, steps, 65535 // max(1, batch)))
+    chunk_steps = steps // splits       # rounded down: at least `splits`
+    splits = -(-steps // chunk_steps)
+    return K2Plan(tile, bm, bn, splits, chunk_steps * K2_K_STEP,
+                  tiles * splits)
+
+
+def k2_passes(policy: TcecPolicy, a_dtype: torch.dtype,
+              b_dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """The schedule passes (lhs word, rhs word) K2 runs for these operand
+    dtypes, in schedule order: a bf16 operand is its own word 0 and its
+    other words are exactly 0, so a pass that reads one of them adds
+    nothing and is skipped."""
+    wa = 1 if a_dtype == torch.bfloat16 else policy.n_words
+    wb = 1 if b_dtype == torch.bfloat16 else policy.n_words
+    return tuple((i, j) for i, j in policy.schedule if i < wa and j < wb)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
 #: C entry point -> (library, argument types).
 _ENTRIES = {
     "repro_tcec_matmul": ("tcec_matmul", [
-        _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL,
-        _CI, _CI, _CI, ctypes.c_float, _CI, _CI, _CI, _CI, _VP]),
+        _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL,
+        _CI, _CI, _CI, ctypes.c_float, _CI, _CI, _CI, _CI,
+        _CI, _CI, _CI, _VP, _VP]),
+    "repro_tcec_matmul_passes_run": ("tcec_matmul", [_CI, _CI]),
     "repro_tcec_matmul_pallas": ("tcec_matmul_k2b", [
         _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL, _CI, _CI,
         _CI, _CI, _VP]),
@@ -164,12 +234,14 @@ def _entry(name: str, passes: int):
 
 def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
              activation=None, out_dtype=None):
-    """Validate a CUDA call and allocate its output; returns ``(out, flag,
-    launch)`` where ``launch()`` enqueues the kernel on the current stream
-    (counted, no host sync) and ``flag`` is the device int that a guarded
-    policy's kernel sets on a non-finite input (``None`` when unguarded).
-    ``tcec_matmul_fused`` is this plus the guard; timing code enqueues
-    ``launch`` alone."""
+    """Validate a CUDA call, plan it (``k2_plan``) and allocate its output
+    and split workspace; returns ``(out, flag, launch)`` where ``launch()``
+    enqueues the call's device work on the current stream — K2 and, with
+    more than one split, its reduce kernel; each counted, no host sync —
+    and ``flag`` is the device int that a guarded policy's kernel sets on a
+    non-finite input (``None`` when unguarded).  ``launch.plan`` is the
+    plan.  ``tcec_matmul_fused`` is this plus the guard; timing code
+    enqueues ``launch`` alone."""
     what = "tcec_matmul"
     passes = kernel_passes(pol, what)
     nb, m, n, k = _check_shapes(a, b)
@@ -197,18 +269,24 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
     out = torch.empty(out_shape, dtype=o_dt, device=dev)
     flag = torch.zeros(1, dtype=torch.int32, device=dev) \
         if _needs_guard(pol) else None
+    plan = k2_plan(m, n, k, nb, _sm_count(dev.index if dev.index is not None
+                                          else torch.cuda.current_device()))
+    split = plan.splits > 1
+    ws = torch.empty(plan.splits * out.numel(), dtype=torch.float32,
+                     device=dev) if split else None
     bf = torch.bfloat16
     args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
             None if flag is None else flag.data_ptr(),
             m, n, k, nb,
-            m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0, m * n,
+            m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0,
             int(a.dtype == bf), int(b.dtype == bf), passes, float(scale),
             _ACT_CODES[activation],
             int(bias is not None and bias.dtype == bf),
             int(residual is not None and residual.dtype == bf),
-            int(o_dt == bf))
+            int(o_dt == bf), K2_TILES[plan.tile][0], plan.splits, plan.chunk,
+            ws.data_ptr() if split else None)
 
     def launch():
         if out.numel() == 0:
@@ -217,7 +295,10 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
         rc = fn(*args, _build.stream_ptr(dev))
         _build.check(lib, rc, what)
         LAUNCHES.hit()
+        if split:
+            LAUNCHES_REDUCE.hit()
 
+    launch.plan = plan
     return out, flag, launch
 
 

@@ -3,10 +3,13 @@
 from .epilogue import ACTIVATIONS, Epilogue
 from .frontend import (PlanRecord, einsum, matmul, mma_dtype, trace_plans,
                        wide_weight_policy)
+from .operands import (FragmentOperand, banded, givens_operand,
+                       householder_operand, identity, triangular)
 from .planner import Plan, matmul_pattern, parse_equation, plan_einsum
 
 __all__ = [
     "ACTIVATIONS", "Epilogue", "PlanRecord", "einsum", "matmul", "mma_dtype",
     "trace_plans", "wide_weight_policy", "Plan", "matmul_pattern",
-    "parse_equation", "plan_einsum",
+    "parse_equation", "plan_einsum", "FragmentOperand", "triangular",
+    "identity", "banded", "householder_operand", "givens_operand",
 ]

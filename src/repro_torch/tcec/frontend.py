@@ -12,11 +12,21 @@ comes with the training slice).  The call
 3. runs it, with the epilogue fused into the kernel's store or applied
    right after the twin's accumulate.
 
-Plain (``passes == 1``, tensor-core) policies on the twin cast operands to
-the matrix unit's native dtype (``mma_dtype``: bf16 on a CUDA device, fp32
-on the CPU, as the reference uses fp32 on its CPU backend) and accumulate
-in fp32 — the reference's ``precision="native"``.  Its ``"strict"``
-convention is not ported yet.
+Operands may be lazy ``FragmentOperand`` rules: the twin splits the built
+rule (``FragmentOperand.build``), as the reference's XLA path does.
+
+Plain (``passes == 1``, tensor-core) policies have two arithmetic
+conventions on the twin, kept apart by ``precision=``:
+
+  * ``"native"`` (default) — operands cast to the matrix unit's native
+    dtype (``mma_dtype``: bf16 on a CUDA device, fp32 on the CPU, as the
+    reference uses fp32 on its CPU backend), fp32 accumulate.  The model
+    path.
+  * ``"strict"`` — operands always split into the policy's bf16 words,
+    whatever the device: the emulation semantics the structured ops'
+    non-kernel path runs.
+
+Corrected and vpu policies are identical under both conventions.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from repro_torch.core.context import resolve_policy
 from repro_torch.core.policy import TcecPolicy
 from repro_torch.core.tcec import split_contract
 from .epilogue import Epilogue, NO_EPILOGUE
+from .operands import FragmentOperand
 from .planner import parse_equation, plan_einsum
 
 __all__ = ["einsum", "matmul", "mma_dtype", "trace_plans", "PlanRecord",
@@ -67,7 +78,7 @@ class PlanRecord:
     eq: str
     site: Optional[str]
     policy: TcecPolicy
-    backend: str
+    backend: str            # the executor that ran: "xla" | "pallas"
 
 
 _TRACE: contextvars.ContextVar[Optional[List[PlanRecord]]] = \
@@ -90,14 +101,14 @@ def trace_plans():
 # ---------------------------------------------------------------------------
 
 def _contract(eq: str, a: torch.Tensor, b: torch.Tensor,
-              pol: TcecPolicy) -> torch.Tensor:
+              pol: TcecPolicy, precision: str = "native") -> torch.Tensor:
     """One policy-selected contraction, fp32 result (the twin executor)."""
     if pol.backend == "vpu":
         return torch.einsum(eq, a.float(), b.float())
     if pol.word_dtype != "bf16":
         raise NotImplementedError(
             f"word_dtype={pol.word_dtype!r} policies are not ported yet")
-    if pol.passes == 1:
+    if pol.passes == 1 and precision == "native":
         dt = mma_dtype(a.device)
         return torch.einsum(eq, a.to(dt).float(), b.to(dt).float())
     return split_contract(eq, a, b, pol)
@@ -134,20 +145,27 @@ def _dim_map(ia: str, ib: str, a_shape, b_shape) -> Dict[str, int]:
     return dims
 
 
-def einsum(eq: str, a: torch.Tensor, b: torch.Tensor, *,
-           site: Optional[str] = None,
+def einsum(eq: str, a, b, *, site: Optional[str] = None,
            policy: TcecPolicy | str | None = None,
-           epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+           epilogue: Optional[Epilogue] = None,
+           precision: str = "native") -> torch.Tensor:
     """Policy-aware two-operand einsum (fp32 accumulate).
 
-    ``policy`` is a registered name, a ``TcecPolicy``, or ``None`` (resolve
-    from the active ``policy_scope`` for ``site``); ``epilogue`` fuses
-    scale/bias/activation/residual/output-cast into the store.  Returns
-    fp32 unless ``epilogue.out_dtype`` says otherwise.
+    ``a``/``b`` are tensors or ``FragmentOperand`` rules; ``policy`` is a
+    registered name, a ``TcecPolicy``, or ``None`` (resolve from the active
+    ``policy_scope`` for ``site``); ``epilogue`` fuses
+    scale/bias/activation/residual/output-cast into the store.  See the
+    module docstring for ``precision``.  Returns fp32 unless
+    ``epilogue.out_dtype`` says otherwise.
     """
+    if precision not in ("native", "strict"):
+        raise ValueError(f"precision must be 'native' or 'strict', "
+                         f"got {precision!r}")
     pol = resolve_policy(policy, site)
     ia, ib, out = parse_equation(eq)
     ep = epilogue if epilogue is not None else NO_EPILOGUE
+    a_frag = isinstance(a, FragmentOperand)
+    b_frag = isinstance(b, FragmentOperand)
     dims = _dim_map(ia, ib, a.shape, b.shape)
     out_shape = tuple(dims[c] for c in out)
     if ep.residual is not None and tuple(ep.residual.shape) != out_shape:
@@ -157,13 +175,17 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor, *,
     # The kernel reads an (n,) bias per output column; other broadcast
     # shapes take the twin.
     bias_ok = ep.bias is None or tuple(ep.bias.shape) == (out_shape[-1],)
-    plan = plan_einsum(ia, ib, out, pol, bias_ok)
+    plan = plan_einsum(ia, ib, out, pol, bias_ok, a_frag, b_frag)
     log = _TRACE.get()
     if log is not None:
         log.append(PlanRecord(f"{ia},{ib}->{out}", site, pol, plan.backend))
+    if a_frag:
+        a = a.build()
+    if b_frag:
+        b = b.build()
     if plan.backend == "pallas":
         return _run_kernel(plan.pattern, pol, a, b, ep)
-    return ep.apply(_contract(f"{ia},{ib}->{out}", a, b, pol))
+    return ep.apply(_contract(f"{ia},{ib}->{out}", a, b, pol, precision))
 
 
 def _matmul_equation(a_ndim: int, b_ndim: int) -> str:

@@ -1,5 +1,5 @@
 """Backend planning for the einsum frontend (counterpart of
-``repro.tcec.planner``, without fragment operands).
+``repro.tcec.planner``).
 
 Given the equation, the resolved ``TcecPolicy`` and the epilogue, pick the
 executor:
@@ -13,6 +13,11 @@ executor:
                    epilogue at the store).  Requires ``policy.kernel ==
                    "pallas"``, the tensor-core backend and a matmul-shaped
                    equation.
+
+A ``FragmentOperand`` on either side takes the twin: the reference builds
+an lhs fragment in-trace as well, and generates a data-free rhs inside its
+kernel (``"pallas_fragment"``), an arm the CUDA kernel does not have yet;
+here the twin splits the built rule instead.
 
 Matmul-shaped equations:
 
@@ -83,10 +88,13 @@ class Plan:
 
 
 def plan_einsum(ia: str, ib: str, out: str, policy: TcecPolicy,
-                bias_ok: bool) -> Plan:
+                bias_ok: bool, a_is_frag: bool = False,
+                b_is_frag: bool = False) -> Plan:
     """Pick the executor.  Anything the kernel cannot express takes the
     twin — same split arithmetic, no staged word buffers."""
     if policy.kernel != "pallas" or policy.backend != "mxu":
+        return Plan("xla")
+    if a_is_frag or b_is_frag:
         return Plan("xla")
     pattern = matmul_pattern(ia, ib, out)
     if pattern is None or not bias_ok:

@@ -2,12 +2,19 @@
 ``givens``, ``cumsum``: K7-K9) and rule-made fragments against the JAX
 package.
 
-On this CPU host the port's wrappers run their plain PyTorch versions; the
-reference's Pallas kernels run in interpret mode, as its own tests run
-them.  Inputs are made with numpy from a seed (normal numbers only) and fed
-to both.  Tests marked ``cuda`` hold the CUDA kernels against their plain
+On this CPU host the kernel wrappers of ``repro_torch.kernels.structured``
+run their plain PyTorch versions, held against the reference's Pallas
+kernels in interpret mode, as its own tests run them; the public ops of
+``repro_torch.kernels.ops`` run the reference's fallback (the rule as a
+``FragmentOperand`` through the einsum frontend at the ``"structured"``
+site), held against the reference's own ``repro.kernels.ops`` on its
+default CPU path under the default policy and under a corrected one.
+Inputs are made with numpy from a seed (normal numbers only) and fed to
+both.  Tests marked ``cuda`` hold the CUDA kernels against their plain
 versions and need a card.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -16,9 +23,12 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import fragment as jfrag  # noqa: E402
+from repro.core.context import policy_scope as jpolicy_scope  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 
+from repro_torch import tcec  # noqa: E402
 from repro_torch.core import fragment  # noqa: E402
+from repro_torch.core.context import policy_scope  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     launch_counts, ops, reset_launch_counts, structured)
 
@@ -73,7 +83,8 @@ def _same_nonfinite(ours, ref):
 def test_householder_matches_reference(b, m, k):
     v, a = _householder_inputs(b, m, k)
     ref = jops.householder(jnp.asarray(v), jnp.asarray(a), interpret=True)
-    ours = ops.householder(torch.from_numpy(v), torch.from_numpy(a))
+    ours = structured.householder_apply(torch.from_numpy(v),
+                                        torch.from_numpy(a))
     assert ours.dtype == torch.float32 and tuple(ours.shape) == (b, m, k)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
@@ -93,7 +104,8 @@ def test_givens_matches_reference(b, m, k, gi, gj):
     th, a = _givens_inputs(b, m, k, gi)
     ref = jops.givens(jnp.asarray(th), jnp.asarray(a), gi, gj,
                       interpret=True)
-    ours = ops.givens(torch.from_numpy(th), torch.from_numpy(a), gi, gj)
+    ours = structured.givens_apply(torch.from_numpy(th), torch.from_numpy(a),
+                                   gi, gj)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
     # The rows G leaves alone are bf16(A) exactly: one product by 1.
@@ -105,7 +117,7 @@ def test_givens_matches_reference(b, m, k, gi, gj):
 def test_cumsum_matches_reference(rows, n, block):
     x = _cumsum_input(rows, n)
     ref = jops.cumsum(jnp.asarray(x), block, interpret=True)
-    ours = ops.cumsum(torch.from_numpy(x), block).numpy()
+    ours = structured.scan_cumsum(torch.from_numpy(x), block).numpy()
     np.testing.assert_allclose(ours, np.asarray(ref), rtol=1e-4, atol=1e-4)
     exact = np.cumsum(x.astype(np.float64), axis=-1)
     assert np.max(np.abs(ours - exact)) / np.max(np.abs(exact)) < 2e-2
@@ -138,19 +150,21 @@ def test_bf16_overflow_gives_the_reference_nonfinite_pattern(op):
         x = _cumsum_input(8, 64)
         x[1, 5], x[3, 40] = BIG, -BIG
         ref = jops.cumsum(jnp.asarray(x), 32, interpret=True)
-        ours = ops.cumsum(torch.from_numpy(x), 32)
+        ours = structured.scan_cumsum(torch.from_numpy(x), 32)
     elif op == "givens":
         th, a = _givens_inputs(2, 16, 24, 1)
         a[0, 4, 7], a[1, 9, 0] = BIG, -BIG
         ref = jops.givens(jnp.asarray(th), jnp.asarray(a), 1, 9,
                           interpret=True)
-        ours = ops.givens(torch.from_numpy(th), torch.from_numpy(a), 1, 9)
+        ours = structured.givens_apply(torch.from_numpy(th),
+                                       torch.from_numpy(a), 1, 9)
     else:
         v, a = _householder_inputs(2, 16, 24)
         a[0, 4, 7], a[0, 6, 7], a[1, 9, 0] = BIG, -BIG, BIG
         ref = jops.householder(jnp.asarray(v), jnp.asarray(a),
                                interpret=True)
-        ours = ops.householder(torch.from_numpy(v), torch.from_numpy(a))
+        ours = structured.householder_apply(torch.from_numpy(v),
+                                            torch.from_numpy(a))
     assert not np.isfinite(np.asarray(ref)).all()
     _same_nonfinite(ours.numpy(), ref)
 
@@ -199,20 +213,82 @@ def test_fragment_givens_is_the_reference_up_to_libm(theta):
 
 
 def test_cpu_runs_the_plain_versions_and_counts_no_launch():
+    """On the CPU the kernel wrappers run their plain versions, and the
+    public ops run the frontend at the "structured" site (strict, one
+    record per contraction), which honours the site's policy; nothing
+    counts a launch."""
     reset_launch_counts()
-    v, a = _householder_inputs(2, 16, 8)
     t = torch.from_numpy
-    assert torch.equal(ops.householder(t(v), t(a)),
-                       structured.householder_plain(t(v), t(a)))
-    th, a = _givens_inputs(2, 16, 8, 0)
-    assert torch.equal(ops.givens(t(th), t(a), 0, 3),
-                       structured.givens_plain(t(th), t(a), 0, 3))
+    v, a = _householder_inputs(2, 16, 8)
+    th, ag = _givens_inputs(2, 16, 8, 0)
     x = _cumsum_input(4, 64)
-    assert torch.equal(ops.cumsum(t(x), 16),
+    assert torch.equal(structured.householder_apply(t(v), t(a)),
+                       structured.householder_plain(t(v), t(a)))
+    assert torch.equal(structured.givens_apply(t(th), t(ag), 0, 3),
+                       structured.givens_plain(t(th), t(ag), 0, 3))
+    assert torch.equal(structured.scan_cumsum(t(x), 16),
                        structured.scan_cumsum_plain(t(x), 16))
+    with tcec.trace_plans() as log:
+        ops.householder(t(v), t(a))
+        ops.givens(t(th), t(ag), 0, 3)
+        ops.cumsum(t(x), 16)
+    assert len(log) == 2 + 64 // 16
+    assert {(r.site, r.backend, r.policy.passes) for r in log} == \
+        {("structured", "xla", 1)}
+    with policy_scope(structured="bf16x6"), tcec.trace_plans() as log:
+        h6 = ops.householder(t(v), t(a))
+    assert [r.policy.passes for r in log] == [6]
+    assert not torch.equal(h6, structured.householder_plain(t(v), t(a)))
     counts = launch_counts()
     assert {"householder_apply", "givens_apply", "scan_cumsum"} <= set(counts)
     assert not any(counts.values())
+
+
+def _max_rel(x, ref) -> float:
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(x - ref).max() / np.abs(ref).max())
+
+
+#: (op, shape) of the ops-level cases: the acceptance shapes (Householder
+#: b=4, m=32, k=64; cumsum 8x512, block 128), a Givens shape, and a ragged
+#: shape each.
+OPS_CASES = [("householder", (4, 32, 64)), ("householder", (3, 20, 24)),
+             ("givens", (8, 64, 64, 3, 60)), ("givens", (3, 20, 24, 2, 11)),
+             ("cumsum", (8, 512, 128)), ("cumsum", (5, 60, 20))]
+
+
+def _run_op(op, shape, lib, jax_side: bool):
+    t = jnp.asarray if jax_side else torch.from_numpy
+    if op == "householder":
+        v, a = _householder_inputs(*shape)
+        return lib.householder(t(v), t(a))
+    if op == "givens":
+        b, m, k, gi, gj = shape
+        th, a = _givens_inputs(b, m, k, gi)
+        return lib.givens(t(th), t(a), gi, gj)
+    rows, n, block = shape
+    return lib.cumsum(t(_cumsum_input(rows, n)), block)
+
+
+@pytest.mark.parametrize("policy", [None, "bf16x6", "bf16x3"])
+@pytest.mark.parametrize("op,shape", OPS_CASES,
+                         ids=[f"{o}-{s}" for o, s in OPS_CASES])
+def test_ops_follow_the_structured_site_policy_as_the_reference(op, shape,
+                                                                 policy):
+    """``ops.*`` on the CPU against ``repro.kernels.ops.*`` on its default
+    CPU path (the frontend fallback), under the default policy and under
+    ``policy_scope(structured=...)``: within 1e-6 of the reference's output,
+    max-norm relative."""
+    def scope(policy_scope_of):
+        return policy_scope_of(structured=policy) if policy \
+            else contextlib.nullcontext()
+
+    with scope(jpolicy_scope):
+        ref = np.asarray(_run_op(op, shape, jops, True))
+    with scope(policy_scope):
+        ours = _run_op(op, shape, ops, False)
+    assert ours.dtype == torch.float32 and ours.shape == ref.shape
+    assert _max_rel(ours.numpy(), ref) <= 1e-6
 
 
 def test_mixed_devices_and_bad_shapes_raise():

@@ -10,7 +10,13 @@ It imports nothing of JAX or of the ``repro`` package.  It
      ``sm_90a``, one compiler per library and pass count, all started
      together);
   1. holds each kernel against its plain PyTorch version on the card at the
-     shapes its path gives it — the TCEC matmuls (K2, K2b, K5, K6) also
+     shapes its path gives it (K3 also at head dims 128 and 256; K4 also at
+     a long context its plan splits and at every head-dim bucket, with the
+     plan and passes each row ran, timed through its wrapper and as the
+     enqueue alone; the non-finite fix-up against its plain version with
+     the flag set and ±inf/NaN in its inputs at the tied LM head's serving
+     shape and two more, and its cost with the flag set and clear) — the
+     TCEC matmuls (K2, K2b, K5, K6) also
      against an fp64 oracle, K2 also at ragged shapes under every pair of
      operand dtypes and twice for the same bits, with the plan it ran
      (tile, k splits) and the passes it ran, and K2b, K5 and K6 bitwise
@@ -28,17 +34,23 @@ It imports nothing of JAX or of the ``repro`` package.  It
      change of summation order moves the twin's logits on the bf16 weights
      (the witness the bf16 limit is set from) and how both gaps grow with
      depth, and profiles three decode ticks of the kernel path (device
-     time by kernel, K2's share, the device's idle share);
+     time by kernel, K2's and K4's shares, the device's idle share); it
+     checks that no non-finite guard reads the device from the host on a
+     decode tick (the guard-sync counter stays 0), and runs one more tick
+     under torch's sync debug mode to list every host sync left and where
+     it comes from;
   3. drives ``tcec_matmul_auto`` under ``REPRO_TUNE=measure`` (fresh plan
      cache under ``build/``) over the paper's batched-SGEMM sweep, a 4096^3
      product and qwen2-0.5b's w_gate at prefill: the chosen (variant, tile),
      every variant's best time, cuBLAS SGEMM's, the bounds, a cache hit on
-     a second plan, and each kernel's shared memory and blocks per SM
-     against the port's footprint model;
+     a second plan, each variant's call time minus its kernel time, and
+     each kernel's shared memory and blocks per SM against the port's
+     footprint model;
   4. drives the structured ops ``repro_torch.kernels.ops.householder``,
      ``givens`` and ``cumsum`` (K7-K9: H, G and the triangular ones made in
      registers) at the paper's benchmark shapes and at one shape per op
-     that fills the card, checks them against their plain versions and the
+     that fills the card (the scan also at block_n 8192, which its tile
+     stages in k-slices), checks them against their plain versions and the
      JAX tests' properties, holds each kernel against its plain version at
      the JAX tests' shapes and a ragged one, checks the bf16-overflow
      ±inf/NaN pattern, and times kernel, plain version and the staged
@@ -46,7 +58,9 @@ It imports nothing of JAX or of the ``repro`` package.  It
      ``torch.cumsum``).
 
 Any failed check exits non-zero.  It prints the card's name and power limit,
-a ``{"kernels": [...]}`` line, and as its last line
+a ``{"kernels": [...]}`` line (``launches``: host calls of the kernel's
+wrapper on its path, one per call; ``enqueues``: what one call puts on the
+stream), and as its last line
 ``{"ok": true, "device": {...}}``.  Full tables go to
 ``build/chip_smoke.json``.  ``--parity-only`` stops after phase 1 and prints
 no result line.
@@ -344,10 +358,13 @@ def check_k2_ragged(dev, gen):
                     fail(f"K2 ragged {name} ({m}, {k}, {n}): fp64 oracle")
                 n_checked += 1
     # Non-finite values in the fp32 lhs, then in bf16 weights (both halves
-    # of a packed pair) against a bf16 lhs, at decode and prefill tiles.
-    for m, a_dt in ((3, f32), (40, bf)):
-        x = torch.randn(m, 905, generator=gen, device=dev).to(a_dt)
-        w = torch.randn(905, 136, generator=gen, device=dev).to(bf)
+    # of a packed pair) against a bf16 lhs, at decode and prefill tiles:
+    # plans with splits (the fix-up folded into the reduce kernel) and, at
+    # k = 16 (one k step), with one split (the fix-up kernel on its own).
+    splits_seen = set()
+    for m, a_dt, k in ((3, f32, 905), (40, bf, 905), (40, f32, 16)):
+        x = torch.randn(m, k, generator=gen, device=dev).to(a_dt)
+        w = torch.randn(k, 136, generator=gen, device=dev).to(bf)
         if a_dt == f32:
             x[1, 2], x[2, 5] = float("inf"), float("nan")
         else:
@@ -355,64 +372,104 @@ def check_k2_ragged(dev, gen):
                                              float("nan"))
         for name in K2_POLICIES:
             pol = get_policy(name)
+            splits_seen.add(tm.launcher(x, w, pol)[2].plan.splits > 1)
             got = tm.tcec_matmul_fused(x, w, pol, activation="tanh")
             plain = tm.tcec_matmul_plain(x, w, pol, activation="tanh")
             if bool(torch.isfinite(plain).all()) or not same_nonfinite(
                     got, plain):
                 fail(f"K2 {name} m={m}: non-finite inputs give another "
                      f"pattern than the plain version's")
+    if splits_seen != {True, False}:
+        fail("K2 non-finite checks did not cover one split and splits")
     print(f"K2 ragged: {n_checked} (shape, dtypes, policy) rows within "
           f"tolerance of the plain version and the same bits twice; "
-          f"non-finite inputs give the plain version's ±inf/NaN pattern",
-          flush=True)
+          f"non-finite inputs give the plain version's ±inf/NaN pattern "
+          f"(fix-up folded into the reduce and on its own)", flush=True)
+
+
+#: K3's rows: (b, h, kvh, sq, d, dv); the first is qwen2-0.5b's prefill
+#: (the headline), the others the larger head dims the kernel takes.
+K3_SHAPES = ((1, 14, 2, 256, 64, 64), (1, 14, 2, 256, 128, 128),
+             (1, 14, 2, 256, 256, 256))
 
 
 def check_k3(dev, rows):
+    """K3 against its plain version (1e-5 max-norm; bf16x1 on a 1/8 grid)
+    at qwen2-0.5b's prefill shape and at head dims 128 and 256, causal;
+    times beside fp32 SDPA and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
-    b, h, kvh, s, d = 1, 14, 2, 256, 64
-    normal = [torch.randn(b, n, s, d, generator=gen, device=dev)
-              for n in (h, kvh, kvh)]
-    grid = [on_grid(x, gen) for x in normal]
     headline = None
-    for name in ("bf16x1", "bf16x3", "bf16x6"):
-        pol = get_policy(name)
-        q, k, v = grid if name == "bf16x1" else normal
-        got = fa.flash_attention(q, k, v, causal=True, policy=pol)
-        plain = fa.flash_attention_plain(q, k, v, pol, causal=True)
-        err = max_rel(got, plain)
-        if err >= 1e-5:
-            fail(f"K3 {name}: kernel vs plain {err:.3e} >= 1e-5")
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                                policy=pol))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, pol, causal=True))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k.repeat_interleave(h // kvh, 1),
-            v.repeat_interleave(h // kvh, 1), is_causal=True))
-        pairs = s * (s + 1) // 2                       # causal (row, col)
-        n_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 4
-        b_ms, b_by = bound_ms(n_bytes, 2.0 * pairs * 2 * d * h * b
-                              * pol.passes)
-        row = dict(kernel="flash_attention", b=b, h=h, kvh=kvh, sq=s, d=d,
-                   causal=True, policy=name, rel_err_vs_plain=err,
-                   max_abs_err=float((got - plain).abs().max()), ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by)
-        rows.append(row)
-        print(f"K3 (1,14,256,64) kvh2 causal {name}: plain {err:.2e} | "
-              f"{ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound "
-              f"{b_ms:.4f} {b_by})", flush=True)
-        if name == "bf16x6":
-            headline = row
+    for b, h, kvh, s, d, dv in K3_SHAPES:
+        normal = [torch.randn(b, n, s, e, generator=gen, device=dev)
+                  for n, e in ((h, d), (kvh, d), (kvh, dv))]
+        grid = [on_grid(x, gen) for x in normal]
+        for name in ("bf16x1", "bf16x3", "bf16x6"):
+            pol = get_policy(name)
+            q, k, v = grid if name == "bf16x1" else normal
+            got = fa.flash_attention(q, k, v, causal=True, policy=pol)
+            plain = fa.flash_attention_plain(q, k, v, pol, causal=True)
+            err = max_rel(got, plain)
+            if err >= 1e-5:
+                fail(f"K3 d={d} dv={dv} {name}: kernel vs plain {err:.3e} "
+                     f">= 1e-5")
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                    policy=pol))
+            plain_ms = time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, pol, causal=True))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k.repeat_interleave(h // kvh, 1),
+                v.repeat_interleave(h // kvh, 1), is_causal=True))
+            pairs = s * (s + 1) // 2                   # causal (row, col)
+            n_bytes = (q.numel() + k.numel() + v.numel() + b * h * s * dv) * 4
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * pairs * (d + dv) * h * b
+                                  * pol.passes)
+            row = dict(kernel="flash_attention", b=b, h=h, kvh=kvh, sq=s, d=d,
+                       dv=dv, causal=True, policy=name, rel_err_vs_plain=err,
+                       max_abs_err=float((got - plain).abs().max()), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+            rows.append(row)
+            print(f"K3 ({b},{h},{s},{d}/{dv}) kvh{kvh} causal {name}: plain "
+                  f"{err:.2e} | {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+                  f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by})", flush=True)
+            if (d, name) == (64, "bf16x6"):
+                headline = row
     return headline
 
 
+#: K4's rows: name -> (seq_lens, d, dv).  "headline" is the serving shape
+#: (4 slots, mixed lengths with an empty one); "long" a context of 2048
+#: positions per slot, which the plan splits; the others the head dims the
+#: kernels take (every bucket, and d != dv) at the headline's lengths.
+K4_LENS = [0, 37, 190, 288]
+K4_SHAPES = {"headline": (K4_LENS, 64, 64), "long": ([2048] * 4, 64, 64),
+             "d32": (K4_LENS, 32, 32), "d128": (K4_LENS, 128, 128),
+             "d256": (K4_LENS, 256, 256), "d192_dv128": (K4_LENS, 192, 128)}
+
+
+def k4_bound(lens, h, kvh, d, dv, b, npages, esize, qk, pv):
+    """(bound ms, what bounds it): each live position's k and v rows read
+    once, q read and the fp32 output written once, the table and lengths;
+    the passes K4 runs on the tensor cores."""
+    live = sum(lens)
+    n_bytes = (live * kvh * (d + dv) * esize + b * h * d * 4 + b * h * dv * 4
+               + b * npages * 4 + b * 4)
+    flops = 2.0 * live * h * (d * len(qk) + dv * len(pv))
+    return bound_ms(n_bytes, flops)
+
+
 def check_k4(dev, rows):
+    """K4 against its plain version (1e-5 max-norm; bf16x1 on a 1/8 grid)
+    at the serving shape, a long context that the plan splits and every
+    head-dim bucket, bf16 pages, under every policy; a zero length gives
+    zeros; times (the whole wrapper, as earlier trees timed K4, and the
+    enqueue alone) beside its plain version, SDPA over the gathered cache
+    and the bound, with the plan and the passes each row ran."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.policy import get_policy
@@ -420,65 +477,152 @@ def check_k4(dev, rows):
     from repro_torch.serving.paged_cache import gather_pages
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
-    h, kvh, d = 14, 2, 64
-    lens = [0, 37, 190, 288]                     # mixed, including empty
-    b = len(lens)
-    npages = -(-max(lens) // PAGE)
-    n_phys = 1 + b * npages
-    perm = torch.randperm(n_phys - 1, generator=gen, device=dev) + 1
-    block_table = perm[:b * npages].reshape(b, npages).to(torch.int32)
-    k_pages = torch.randn(n_phys, PAGE, kvh, d, generator=gen,
-                          device=dev).to(torch.bfloat16)
-    v_pages = torch.randn(n_phys, PAGE, kvh, d, generator=gen,
-                          device=dev).to(torch.bfloat16)
-    q = torch.randn(b, h, d, generator=gen, device=dev)
-    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    normal = (q, k_pages, v_pages)
-    grid = [on_grid(x, gen) for x in normal]
-    headline = None
-    for name in ("bf16x1", "bf16x3", "bf16x6"):
-        pol = get_policy(name)
-        q, k_pages, v_pages = grid if name == "bf16x1" else normal
-        kv = gather_pages(k_pages, block_table).float()
-        vv = gather_pages(v_pages, block_table).float()
-        kk = kv.permute(0, 2, 1, 3).repeat_interleave(h // kvh, 1)
-        vk = vv.permute(0, 2, 1, 3).repeat_interleave(h // kvh, 1)
-        mask = (torch.arange(kv.shape[1], device=dev)[None]
-                < seq_lens[:, None])[:, None, None]
-        run = (lambda: pa.paged_decode_attention_kernel(
-            q, k_pages, v_pages, block_table, seq_lens, policy=pol))
-        got = run()
-        plain = pa.paged_decode_attention_plain(
-            q, k_pages, v_pages, block_table, seq_lens,
-            scale=1.0 / d ** 0.5, policy=pol)
-        if not bool((got[0] == 0).all()):
-            fail("K4: a zero-length request did not give zeros")
-        err = max_rel(got, plain)
-        if err >= 1e-5:
-            fail(f"K4 {name}: kernel vs plain {err:.3e} >= 1e-5")
-        ms = time_ms(run)
-        plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
-            q, k_pages, v_pages, block_table, seq_lens,
-            scale=1.0 / d ** 0.5, policy=pol), queued=False)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kk, vk, attn_mask=mask))
-        live = sum(lens)
-        n_bytes = (live * kvh * d * 2 * 2 + q.numel() * 4 * 2
-                   + block_table.numel() * 4 + b * 4)
-        b_ms, b_by = bound_ms(n_bytes, 2.0 * live * h * 2 * d * pol.passes)
-        row = dict(kernel="paged_attention", b=b, h=h, kvh=kvh, d=d,
-                   page=PAGE, seq_lens=lens, policy=name,
-                   rel_err_vs_plain=err,
-                   max_abs_err=float((got - plain).abs().max()), ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+    h, kvh = 14, 2
+    heads = {}
+    for shape, (lens, d, dv) in K4_SHAPES.items():
+        b = len(lens)
+        npages = -(-max(lens) // PAGE)
+        n_phys = 1 + b * npages
+        perm = torch.randperm(n_phys - 1, generator=gen, device=dev) + 1
+        block_table = perm[:b * npages].reshape(b, npages).to(torch.int32)
+        k_pages = torch.randn(n_phys, PAGE, kvh, d, generator=gen,
+                              device=dev).to(torch.bfloat16)
+        v_pages = torch.randn(n_phys, PAGE, kvh, dv, generator=gen,
+                              device=dev).to(torch.bfloat16)
+        q = torch.randn(b, h, d, generator=gen, device=dev)
+        seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        normal = (q, k_pages, v_pages)
+        grid = [on_grid(x, gen) for x in normal]
+        for name in ("bf16x1", "bf16x3", "bf16x6"):
+            pol = get_policy(name)
+            q, k_pages, v_pages = grid if name == "bf16x1" else normal
+            kv = gather_pages(k_pages, block_table).float()
+            vv = gather_pages(v_pages, block_table).float()
+            kk = kv.permute(0, 2, 1, 3).repeat_interleave(h // kvh, 1)
+            vk = vv.permute(0, 2, 1, 3).repeat_interleave(h // kvh, 1)
+            mask = (torch.arange(kv.shape[1], device=dev)[None]
+                    < seq_lens[:, None])[:, None, None]
+            got = pa.paged_decode_attention_kernel(
+                q, k_pages, v_pages, block_table, seq_lens, policy=pol)
+            plain = pa.paged_decode_attention_plain(
+                q, k_pages, v_pages, block_table, seq_lens,
+                scale=1.0 / d ** 0.5, policy=pol)
+            if 0 in lens and not bool((got[lens.index(0)] == 0).all()):
+                fail("K4: a zero-length request did not give zeros")
+            err = max_rel(got, plain)
+            if err >= 1e-5:
+                fail(f"K4 {shape} {name}: kernel vs plain {err:.3e} >= 1e-5")
+            _, launch = pa.launcher(q, k_pages, v_pages, block_table,
+                                    seq_lens, 1.0 / d ** 0.5, pol)
+            plan = launch.plan
+            # The whole wrapper (validation, plan, allocations and the one
+            # host call that enqueues the three kernels), as earlier trees
+            # timed K4, and the enqueue alone.
+            ms = time_ms(lambda: pa.paged_decode_attention_kernel(
+                q, k_pages, v_pages, block_table, seq_lens, policy=pol))
+            launch_ms = time_ms(launch)
+            plain_ms = time_ms(lambda: pa.paged_decode_attention_plain(
+                q, k_pages, v_pages, block_table, seq_lens,
+                scale=1.0 / d ** 0.5, policy=pol), reps=5,
+                queued=False)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kk, vk, attn_mask=mask))
+            qk = pa.k4_passes(pol, q.dtype, k_pages.dtype)
+            pv = pa.k4_passes(pol, torch.float32, v_pages.dtype)
+            b_ms, b_by = k4_bound(lens, h, kvh, d, dv, b, npages, 2, qk, pv)
+            row = dict(kernel="paged_attention", shape=shape, b=b, h=h,
+                       kvh=kvh, d=d, dv=dv, page=PAGE, seq_lens=lens,
+                       policy=name, chunks=plan.chunks, splits=plan.splits,
+                       per=plan.per, blocks=plan.blocks,
+                       passes_qk=[list(p) for p in qk],
+                       passes_pv=[list(p) for p in pv], rel_err_vs_plain=err,
+                       max_abs_err=float((got - plain).abs().max()), ms=ms,
+                       launch_ms=launch_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            print(f"K4 {shape:10s} d{d}/{dv} lens {lens} {name}: plan "
+                  f"{plan.splits} x {plan.per} chunks ({plan.blocks} blocks), "
+                  f"passes {len(qk)}+{len(pv)} | plain {err:.2e} | {ms:.4f} "
+                  f"ms wrapper, {launch_ms:.4f} ms enqueue alone (plain "
+                  f"{plain_ms:.4f}, sdpa over gathered "
+                  f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by})", flush=True)
+            if name == "bf16x6":
+                heads[shape] = row
+    return heads["headline"]
+
+
+#: The fix-up's rows: name -> (equation, lhs shape, rhs shape, rhs is
+#: stored transposed).  "tied_head" is the twin's one fix-up per decode tick
+#: at the serving width: 4 slots' hidden states against qwen2-0.5b's bf16
+#: embedding (151936 x 896), read transposed through its strides — 607,744
+#: outputs, so the kernel's grid-stride loop runs past its first 262,144;
+#: "k2b_batched" K2b's batched shape of phase 3; "ragged" dims that no tile
+#: divides, a batched lhs against a shared rhs.
+FIXUP_SHAPES = {
+    "tied_head": ("ay,zy->az", (4, 896), (151936, 896), True),
+    "k2b_batched": ("bmk,bkn->bmn", (256, 128, 128), (256, 128, 128), False),
+    "ragged": ("bmk,kn->bmn", (3, 40, 72), (72, 136), False),
+}
+
+
+def check_fixup(dev, rows):
+    """The non-finite fix-up on its own at each shape of ``FIXUP_SHAPES``
+    (K2's folded and standalone forms and K2b/K5/K6 are also checked with
+    their kernels).  With the flag set and ±inf/NaN in the lhs (and, but
+    for the tied head's weights, in the rhs), the same ±inf/NaN pattern as
+    its plain version, finite parts untouched; its time then, and its cost
+    per call with the flag clear — the case every call of the serving path
+    takes."""
+    import torch
+    from repro_torch.kernels import nonfinite as nf
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    head = None
+    for shape, (eq, sa, sb, transposed) in FIXUP_SHAPES.items():
+        x = torch.randn(sa, generator=gen, device=dev)
+        w = torch.randn(sb, generator=gen, device=dev)
+        if transposed:                 # the embedding (v, d), bf16
+            w = w.to(torch.bfloat16)
+        x.view(-1)[[5, x.numel() // 2, x.numel() - 7]] = torch.tensor(
+            [float("inf"), float("nan"), float("-inf")], device=dev)
+        if not transposed:
+            w.view(-1)[[11, w.numel() // 3]] = torch.tensor(
+                [float("-inf"), float("nan")], device=dev)
+        set_flag = nf.nonfinite_flag(x, w)
+        clear = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def ref(a_, b_, eq=eq):
+            return torch.einsum(eq, a_.float(), b_.float())
+
+        # What the fix-up finds: the split schedule's finite result.
+        out = torch.randn(ref(x, w).shape, generator=gen, device=dev)
+        plain = nf.nonfinite_fixup_plain(out.clone(), x, w, set_flag, ref)
+        got = nf.einsum_fixup(eq, out.clone(), x, w, set_flag)
+        if not same_nonfinite(got, plain) or bool(torch.isfinite(plain).all()):
+            fail(f"fix-up {shape}: another ±inf/NaN pattern than its plain "
+                 f"version's")
+        both = torch.isfinite(got) & torch.isfinite(plain)
+        err = float((got[both] - plain[both]).abs().max())
+        o = out.clone()
+        ms = time_ms(lambda: nf.einsum_fixup(eq, o, x, w, clear))
+        set_ms = time_ms(lambda: nf.einsum_fixup(eq, o, x, w, set_flag),
+                         reps=5)
+        plain_ms = time_ms(lambda: nf.nonfinite_fixup_plain(
+            o, x, w, clear, ref), queued=False)
+        b_ms, b_by = bound_ms(4, 0.0)          # the flag: 4 bytes read
+        row = dict(kernel="nonfinite_fixup", shape=shape, equation=eq,
+                   lhs=list(sa), rhs=list(sb), outputs=got.numel(),
+                   flag="clear", max_abs_err=err, ms=ms, set_ms=set_ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                    bound_by=b_by)
         rows.append(row)
-        print(f"K4 4 slots h14 kvh2 page16 lens {lens} {name}: plain "
-              f"{err:.2e} | {ms:.4f} ms (plain {plain_ms:.4f}, sdpa over "
-              f"gathered {lib_ms:.4f}, bound {b_ms:.4f} {b_by})", flush=True)
-        if name == "bf16x6":
-            headline = row
-    return headline
+        print(f"fix-up {shape} {eq} {list(sa)} x {list(sb)} "
+              f"({got.numel()} outputs): flag set, same pattern as plain "
+              f"(finite parts {err:.2e}), {set_ms:.4f} ms | flag clear "
+              f"{ms:.4f} ms per call (plain {plain_ms:.4f}, bound "
+              f"{b_ms:.2e} {b_by})", flush=True)
+        head = head or row
+    return head
 
 
 #: Shapes of the tcec_matmul_auto path (phase 3) the K2b/K5/K6 checks run
@@ -586,17 +730,21 @@ def check_family(dev, rows):
                 pol = get_policy(name)
                 kernels = ["tcec_matmul_pallas"] if pol.backend == "vpu" \
                     else list(variants)
+                plain = tm.tcec_matmul_plain(a_bad, b, pol)
                 for kname in kernels:
                     got = calls[kname](a_bad, b, pol)
                     bad = ~torch.isfinite(ref)
                     if not (torch.equal(torch.isnan(got), torch.isnan(ref))
                             and torch.equal(got[bad & ~torch.isnan(ref)],
                                             ref[bad & ~torch.isnan(ref)])
-                            and bool(torch.isfinite(got[~bad]).all())):
+                            and bool(torch.isfinite(got[~bad]).all())
+                            and same_nonfinite(got, plain)):
                         fail(f"{kname} {name}: non-finite pattern differs "
-                             f"from the fp32 product's")
-            print("K2b/K5/K6: non-finite inputs give the fp32 product's "
-                  "±inf/NaN pattern under every policy", flush=True)
+                             f"from the fp32 product's or the plain "
+                             f"version's")
+            print("K2b/K5/K6: non-finite inputs give the fp32 product's and "
+                  "the plain version's ±inf/NaN pattern under every policy "
+                  "(the fix-up kernel on a device flag)", flush=True)
     return heads
 
 
@@ -608,6 +756,7 @@ def serve(dev, cfg, params, prompts, policy):
     """One engine run over ``prompts``; returns (outputs, info)."""
     import torch
     from repro_torch.core.context import policy_scope
+    from repro_torch.core.tcec import GUARD_SYNCS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import PagedServingEngine
     eng = PagedServingEngine(cfg, params, page_size=PAGE,
@@ -616,19 +765,21 @@ def serve(dev, cfg, params, prompts, policy):
                              device=dev)
     for p in prompts:
         eng.submit(p, N_NEW)
-    tick_ms, decode_ms = [], []
+    tick_ms, decode_ms, decode_syncs = [], [], []
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
     with policy_scope(policy):
         while not eng.scheduler.done:
             t = time.perf_counter()
+            n0 = GUARD_SYNCS.n
             plan = eng.step()
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t) * 1e3
             tick_ms.append(dt)
             if plan.decode and not plan.prefill:
                 decode_ms.append(dt)
+                decode_syncs.append(GUARD_SYNCS.n - n0)
             if len(tick_ms) > 10 * N_NEW:
                 fail(f"{policy}: engine did not drain")
     wall = time.perf_counter() - t0
@@ -640,6 +791,7 @@ def serve(dev, cfg, params, prompts, policy):
                 seconds=wall, tokens=n_tok, tok_per_s=n_tok / wall,
                 decode_tick_ms_median=decode_ms[len(decode_ms) // 2],
                 prefill_tick_ms=[t for t in tick_ms if t not in decode_ms],
+                guard_syncs_per_decode_tick_max=max(decode_syncs),
                 logits_finite=eng.all_logits_finite)
     return out, info
 
@@ -678,22 +830,54 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3):
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3 / ticks
     busy = sum(by_kernel.values())
     wall = wall_ms / ticks
-    k2 = sum(v for key, v in by_kernel.items() if "k2_kernel" in key)
-    k2_reduce = sum(v for key, v in by_kernel.items() if "k2_reduce" in key)
+
+    def by(*names):
+        return sum(v for key, v in by_kernel.items()
+                   if any(n in key for n in names))
+    k2, k2_reduce = by("k2_kernel"), by("k2_reduce")
+    k4, fixup = by("k4_scores", "k4_pv", "k4_merge"), by("nonfinite_fixup")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     print(f"decode tick profile ({ticks} ticks): wall {wall:.2f} ms/tick, "
           f"device busy {busy:.2f} ms/tick ({100 * busy / wall:.1f}%, idle "
           f"{100 * (1 - busy / wall):.1f}%); K2 {k2:.3f} + its reduce "
           f"{k2_reduce:.3f} ms/tick ({100 * (k2 + k2_reduce) / busy:.1f}% "
-          f"of busy, {100 * (k2 + k2_reduce) / wall:.1f}% of the tick)",
-          flush=True)
+          f"of busy, {100 * (k2 + k2_reduce) / wall:.1f}% of the tick); K4 "
+          f"{k4:.3f} ms/tick ({100 * k4 / busy:.1f}% of busy, "
+          f"{100 * k4 / wall:.1f}% of the tick); the fix-up on its own "
+          f"{fixup:.3f} ms/tick", flush=True)
     for name, ms in top:
         print(f"  {ms:8.3f} ms/tick  {name[:100]}")
+    # One more tick under torch's sync debug mode: every host sync left,
+    # and the line it comes from.
+    import warnings
+    from collections import Counter
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with policy_scope("bf16x6_pallas"):
+                eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = Counter()
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = Path(w.filename)
+            try:
+                path = path.relative_to(ROOT)
+            except ValueError:
+                pass
+            where[f"{path}:{w.lineno}"] += 1
+    print(f"sync debug tick: {sum(where.values())} host syncs: "
+          f"{dict(where)}", flush=True)
     return dict(wall_ms_per_tick=wall, busy_ms_per_tick=busy,
                 idle_share=1 - busy / wall, k2_ms_per_tick=k2,
                 k2_reduce_ms_per_tick=k2_reduce,
                 k2_share_of_busy=(k2 + k2_reduce) / busy,
                 k2_share_of_tick=(k2 + k2_reduce) / wall,
+                k4_ms_per_tick=k4, k4_share_of_busy=k4 / busy,
+                k4_share_of_tick=k4 / wall, fixup_ms_per_tick=fixup,
+                sync_debug_tick=dict(where),
                 top_kernels_ms_per_tick=top)
 
 
@@ -787,11 +971,22 @@ def check_serve(dev, results):
               "paged_attention": cfg.n_layers * st["decode_ticks"]}
     launched = {k: v for k, v in info_k["launches"].items() if v}
     # K2's reduce kernel runs once per K2 call with more than one split
-    # (every decode call, some prefill calls).
+    # (every decode call, some prefill calls) and carries its non-finite
+    # fix-up; a call with one split enqueues the fix-up on its own, as does
+    # the tied head (the twin) once per prefill and per tick.
     reduces = launched.pop("tcec_matmul_reduce", 0)
-    if launched != expect or not 0 < reduces <= expect["tcec_matmul"]:
+    fixups = launched.pop("nonfinite_fixup", 0)
+    if launched.pop("guard_host_sync", 0) or \
+            info_k["guard_syncs_per_decode_tick_max"]:
+        fail(f"bf16x6_pallas: a non-finite guard read the device from the "
+             f"host ({info_k['launches']['guard_host_sync']} syncs)")
+    want_fixups = (expect["tcec_matmul"] - reduces + st["prefills"]
+                   + st["decode_ticks"])
+    if launched != expect or not 0 < reduces <= expect["tcec_matmul"] or \
+            fixups != want_fixups:
         fail(f"launch counts {info_k['launches']} != expected {expect} "
-             f"(and 0 < tcec_matmul_reduce <= tcec_matmul)")
+             f"(and 0 < tcec_matmul_reduce <= tcec_matmul, nonfinite_fixup "
+             f"== {want_fixups})")
     if sorted(out_k) != list(range(len(prompts))) or any(
             len(v) != N_NEW for v in out_k.values()):
         fail(f"bf16x6_pallas: outputs {[len(v) for v in out_k.values()]}")
@@ -800,11 +995,14 @@ def check_serve(dev, results):
     print(f"serve bf16x6_pallas: {info_k['tokens']} tokens in "
           f"{info_k['seconds']:.3f} s = {info_k['tok_per_s']:.1f} tok/s, "
           f"decode tick median {info_k['decode_tick_ms_median']:.2f} ms, "
-          f"launches {info_k['launches']} (expected)", flush=True)
+          f"launches {info_k['launches']} (expected); host syncs by a "
+          f"non-finite guard: 0 per decode tick", flush=True)
 
     out_t, info_t = serve(dev, cfg, params, prompts, "bf16x6")
-    if any(info_t["launches"].values()):
-        fail(f"bf16x6 twin launched kernels: {info_t['launches']}")
+    if any(v for k, v in info_t["launches"].items()
+           if k != "nonfinite_fixup"):
+        fail(f"bf16x6 twin launched kernels other than the non-finite "
+             f"fix-up, or made guard syncs: {info_t['launches']}")
     if any(len(v) != N_NEW for v in out_t.values()) \
             or not info_t["logits_finite"]:
         fail("bf16x6 twin: wrong output count or non-finite logits")
@@ -1019,6 +1217,9 @@ def check_auto(dev, results):
                                for v, (t, _) in best.items()},
                        kernel_us={v: t for v, (t, _) in kernel.items()},
                        kernel_tile={v: bl for v, (_, bl) in kernel.items()},
+                       call_minus_kernel_us={
+                           v: best[v][0] - kernel[v][0] for v in best
+                           if v in kernel},
                        sgemm_ms=sgemm_ms, sgemm_tflops=flops / sgemm_ms / 1e9,
                        bound_ms=b_ms, bound_by=b_by,
                        bound_tflops=flops / b_ms / 1e9,
@@ -1028,8 +1229,11 @@ def check_auto(dev, results):
                             for v, (t, _) in sorted(best.items()))
             kper = ", ".join(f"{v} {t:.1f} us {tuple(bl)} {flops / t / 1e6:.2f}"
                              f" TF/s" for v, (t, bl) in sorted(kernel.items()))
+            over = ", ".join(f"{v} {t:.1f} us" for v, t in sorted(
+                row["call_minus_kernel_us"].items()))
             print(f"auto {name:7s}: chose {plan.variant} {plan.block} | "
-                  f"call: {per} | kernel alone: {kper} | cuBLAS SGEMM "
+                  f"call: {per} | kernel alone: {kper} | call minus kernel: "
+                  f"{over} | cuBLAS SGEMM "
                   f"{sgemm_ms * 1e3:.1f} us {row['sgemm_tflops']:.2f} TF/s | "
                   f"bound {b_ms * 1e3:.2f} us {row['bound_tflops']:.1f} TF/s "
                   f"({b_by}), fp32 SIMT peak 67 TF/s | oracle {err:.2e} | "
@@ -1060,6 +1264,7 @@ HH_PARITY = [(1, 16, 16), (4, 32, 64), (8, 64, 128), (2, 128, 128),
 GV_PARITY = [(2, 16, 32, 1, 9), (8, 64, 64, 3, 60), (4, 128, 128, 0, 127),
              (3, 20, 24, 2, 11)]
 CS_PARITY = [(8, 256, 128), (16, 512, 256), (8, 1024, 128), (32, 128, 128),
+             (16, 16384, 8192),
              (24, 96, 48)]
 #: The path's shapes: the paper's benchmarks as the JAX package defines them
 #: (benchmarks/householder.py, benchmarks/givens.py) and one shape per op
@@ -1067,7 +1272,7 @@ CS_PARITY = [(8, 256, 128), (16, 512, 256), (8, 1024, 128), (32, 128, 128),
 HH_PATH = {"bench_m16": (512, 16, 64), "bench_m32": (512, 32, 64),
            "full": (16384, 32, 64)}
 GV_PATH = {"bench": (1024, 32, 32, 3, 17), "full": (32768, 32, 32, 3, 17)}
-CS_PATH = {"full": (4096, 8192, 256)}
+CS_PATH = {"full": (4096, 8192, 256), "full_bn8192": (4096, 8192, 8192)}
 BF16_OVERFLOW = 3.4e38   # finite in fp32, rounds to inf in bf16
 
 
@@ -1270,8 +1475,8 @@ def check_structured(dev, results):
               f"{plain_ms:.4f}, {lib} {lib_ms:.4f}"
               + ("" if make_ms is None else f" + materialize {make_ms:.4f}")
               + f", bound {b_ms:.4f} {b_by}"
-              + ("" if s == "full" else "; launch cost sets this shape's "
-                 "time") + f") | {row['check']} {row['check_value']:.3e}",
+              + ("; launch cost sets this shape's time"
+                 if s.startswith("bench") else "") + f") | {row['check']} {row['check_value']:.3e}",
               flush=True)
         if s == "full":
             heads[kname] = row
@@ -1329,7 +1534,8 @@ def main(argv=None) -> int:
     heads = {"tcec_matmul": check_k2(dev, rows, l2_flush(dev)),
              "flash_attention": check_k3(dev, rows),
              "paged_attention": check_k4(dev, rows),
-             **check_family(dev, rows)}
+             **check_family(dev, rows),
+             "nonfinite_fixup": check_fixup(dev, rows)}
     results["kernels"] = rows
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1345,7 +1551,11 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
     # kernel -> (source, TPU kernel it replaces, launches on its path: the
     # serving run (phase 2) for K2-K4, the tcec_matmul_auto run (phase 3)
-    # for K2b, K5 and K6, the structured ops' run (phase 4) for K7-K9)
+    # for K2b, K5 and K6, the structured ops' run (phase 4) for K7-K9).
+    # One rule for every kernel: `launches` counts the host calls of its
+    # wrapper that enqueued it, one per call; `enqueues` says what one such
+    # call puts on the stream (K4: three kernels; K2: its product and, where
+    # the plan splits k, a reduce kernel with the fix-up folded in).
     mm = "src/repro_torch/csrc/tcec_matmul.cu"
     staged = "src/repro_torch/csrc/tcec_staged.cu"
     fragments = "src/repro_torch/csrc/structured.cu"
@@ -1373,6 +1583,21 @@ def main(argv=None) -> int:
                          structured_launches),
         "scan_cumsum": (fragments, "src/repro/kernels/structured.py:119",
                         structured_launches),
+        # Not a pallas_call: the device half of the reference's non-finite
+        # guard (its lax.cond); launches on the serving path (phase 2).
+        "nonfinite_fixup": ("src/repro_torch/csrc/nonfinite_fixup.cu",
+                            "src/repro/core/tcec.py:98",
+                            info["launches"]),
+    }
+    enqueues = {
+        "tcec_matmul": "the product kernel; where k is split, a reduce "
+                       "kernel with the fix-up folded in (also counted as "
+                       "tcec_matmul_reduce); else, under a corrected "
+                       "policy, the fix-up kernel (also counted as "
+                       "nonfinite_fixup)",
+        "paged_attention": "three kernels: scores, split softmax-V, merge",
+        "nonfinite_fixup": "one fix-up kernel: the twin's guard, K2b/K5/K6's "
+                           "or K2's with one split",
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():
@@ -1381,7 +1606,9 @@ def main(argv=None) -> int:
             fail(f"{name} was not launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
+            launches=launches[name],
+            enqueues=enqueues.get(name, "one kernel"),
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(f"chip_smoke: build and phases 1-4 in "

@@ -17,6 +17,12 @@ The non-finite guard keeps a split schedule's ±inf/NaN behaviour identical
 to an fp32 dot: operands are sanitized before splitting (a split word of a
 non-finite value poisons every later word), and where the fp32 reference
 contraction is non-finite its value replaces the schedule's.
+``nonfinite_guard`` checks the inputs on the host, which is free on CPU
+tensors.  ``split_contract`` takes the guard as a callable, so its caller
+(the frontend, ``repro_torch.tcec.frontend``) can keep the check on the
+card for CUDA tensors — a device flag and the fix-up kernel, the
+reference's ``lax.cond``.  ``GUARD_SYNCS`` counts the host syncs a guard
+still makes on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -24,11 +30,16 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from .counters import counter
 from .policy import TcecPolicy
 from .precision import split_words
 
 __all__ = ["split_words", "sanitize_nonfinite", "nonfinite_guard",
-           "mma_passes", "split_contract"]
+           "mma_passes", "split_contract", "Guard", "GUARD_SYNCS"]
+
+#: Host syncs made by a non-finite guard on a CUDA tensor (``all_finite``):
+#: every wired path keeps its guard on the card, so this stays 0 there.
+GUARD_SYNCS = counter("guard_host_sync")
 
 
 def sanitize_nonfinite(x: torch.Tensor) -> torch.Tensor:
@@ -39,31 +50,32 @@ def sanitize_nonfinite(x: torch.Tensor) -> torch.Tensor:
 
 
 def all_finite(*xs: torch.Tensor) -> bool:
-    """True when every element of every tensor is finite (one host sync)."""
+    """True when every element of every tensor is finite (a host read;
+    counted in ``GUARD_SYNCS`` when it syncs a CUDA device)."""
     ok = torch.ones((), dtype=torch.bool, device=xs[0].device)
     for x in xs:
         ok = ok & torch.isfinite(x).all()
+    if ok.is_cuda:
+        GUARD_SYNCS.hit()
     return bool(ok)
 
 
 def nonfinite_guard(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                    ref_fn: Callable, post: Optional[Callable] = None,
-                    finite: Optional[bool] = None) -> torch.Tensor:
+                    ref_fn: Callable, post: Optional[Callable] = None
+                    ) -> torch.Tensor:
     """Make a split-schedule result propagate ±inf/NaN like the fp32 dot.
 
     ``out`` was computed from sanitized operands.  When any input element
     is non-finite, ``ref_fn(a, b)`` — the fp32 reference contraction on the
     original operands — supplies the ±inf/NaN entries, mapped through
     ``post`` (what followed the contraction: the matmul kernel's epilogue)
-    before they replace ``out``'s.  The reference runs only then.
-    ``finite`` is whether every input was finite, when the caller knows
-    already (the matmul kernel's device flag); otherwise it is checked here
-    at the cost of one host sync (the JAX package uses a ``lax.cond``,
-    which PyTorch has no device-side counterpart of).
+    before they replace ``out``'s.  The reference runs only then.  The
+    inputs are checked here on the host (``all_finite``), which is free on
+    CPU tensors; the port's CUDA paths do not come here but run the fix-up
+    kernel on a device flag instead (``repro_torch.kernels.nonfinite``), as
+    the reference's ``lax.cond`` keeps its check on the device.
     """
-    if finite is None:
-        finite = all_finite(a, b)
-    if finite:
+    if all_finite(a, b):
         return out
     ref = ref_fn(a, b)
     mask = torch.isfinite(ref)
@@ -86,14 +98,23 @@ def mma_passes(aw: Sequence[torch.Tensor], bw: Sequence[torch.Tensor],
     return acc
 
 
+#: A guard ``split_contract`` may be given: ``guard(eq, out, a32, b32)``
+#: returns the guarded product, or None to leave it to ``nonfinite_guard``.
+Guard = Callable[[str, torch.Tensor, torch.Tensor, torch.Tensor],
+                 Optional[torch.Tensor]]
+
+
 def split_contract(eq: str, a: torch.Tensor, b: torch.Tensor,
-                   policy: TcecPolicy) -> torch.Tensor:
+                   policy: TcecPolicy, guard: Optional[Guard] = None
+                   ) -> torch.Tensor:
     """The bf16 split schedule of ``policy`` as torch ops; fp32 result.
 
     ``passes == 1`` is the plain single-word cast (±inf/NaN propagate
     through the products naturally, no guard); corrected policies split the
     sanitized operands, sum the scheduled passes in order and run the
-    non-finite guard.  Both operands may be any float dtype.
+    non-finite guard: ``guard`` when it is given and returns a result, else
+    the host check ``nonfinite_guard`` (counted in ``GUARD_SYNCS`` on a
+    CUDA tensor).  Both operands may be any float dtype.
     """
     if policy.word_dtype != "bf16":
         raise NotImplementedError(
@@ -104,5 +125,10 @@ def split_contract(eq: str, a: torch.Tensor, b: torch.Tensor,
     a32, b32 = a.float(), b.float()
     aw = split_words(sanitize_nonfinite(a32), policy.n_words)
     bw = split_words(sanitize_nonfinite(b32), policy.n_words)
-    return nonfinite_guard(mma_passes(aw, bw, policy.schedule, eq), a32, b32,
+    out = mma_passes(aw, bw, policy.schedule, eq)
+    if guard is not None:
+        fixed = guard(eq, out, a32, b32)
+        if fixed is not None:
+            return fixed
+    return nonfinite_guard(out, a32, b32,
                            lambda a_, b_: _einsum32(eq, a_, b_))

@@ -1,8 +1,9 @@
 // K3 — flash attention forward with TCEC-policy QK^T and PV.
 //
 // Replaces: repro/kernels/flash_attention.py::_flash_kernel (the pallas_call
-// in _flash_attention).  The backward (a recompute through the dense twin in
-// the reference) comes with the training slice.
+// in _flash_attention), head dims d <= 256 and dv <= 256 (d != dv allowed).
+// The backward (a recompute through the dense twin in the reference) comes
+// with the training slice.
 //
 // What bounds it on an H100: at prefill lengths the score work is
 // 2 * sq * skv * (d + dv) products per head, times the policy's passes, on
@@ -20,6 +21,14 @@
 // (the Pallas kernel recompiles per value).  GQA reads kv head h / rep, no
 // head copies.  NEG_INF = -1e30 and the m_new > 0.5 * NEG_INF guard are the
 // reference's; rows with no valid column emit exact zeros.  Output is fp32.
+//
+// Head dims: the kernel is built for a bucket DMAX in {32, 64, 128, 256} of
+// max(d, dv), which sizes the shared tiles and the output registers; d and dv
+// are runtime arguments, loads past them read zero (the shared tiles are
+// DMAX wide), k16 steps past d and output tiles past dv are skipped, and no
+// padded copy of q, k or v is made.
+// At DMAX = 256 the fp32 tiles take 195 KB of shared memory (one block per
+// SM) and the 128 output accumulators per thread spill registers.
 #include "tcec_core.cuh"
 
 namespace {
@@ -40,7 +49,8 @@ struct Smem {
 template <typename T, int D, int PASSES>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V,
-                 float* __restrict__ O, int H, int rep, int SQ, int SKV, int kv_len,
+                 float* __restrict__ O, int H, int rep, int SQ, int SKV, int d, int dv,
+                 int kv_len,
                  int causal, float scale, long long qsb, long long qsh, long long qss,
                  long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
                  long long vss, long long osb, long long osh, long long oss) {
@@ -63,9 +73,10 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
   const T* Kb = K + b * ksb + kvh * ksh;
   const T* Vb = V + b * vsb + kvh * vsh;
 
+  // Tiles are D columns wide (compile-time divisions), zero past d (dv).
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
-    sm.q[r][c] = (q0 + r < SQ) ? Qb[(long long)(q0 + r) * qss + c] : T(0.f);
+    sm.q[r][c] = (q0 + r < SQ && c < d) ? Qb[(long long)(q0 + r) * qss + c] : T(0.f);
   }
 
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
@@ -85,8 +96,8 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
     for (int idx = tid; idx < BKV * D; idx += THREADS) {
       const int r = idx / D, c = idx % D;
       const bool in = kv0 + r < SKV;
-      sm.k[r][c] = in ? Kb[(long long)(kv0 + r) * kss + c] : T(0.f);
-      sm.v[r][c] = in ? Vb[(long long)(kv0 + r) * vss + c] : T(0.f);
+      sm.k[r][c] = (in && c < d) ? Kb[(long long)(kv0 + r) * kss + c] : T(0.f);
+      sm.v[r][c] = (in && c < dv) ? Vb[(long long)(kv0 + r) * vss + c] : T(0.f);
     }
     __syncthreads();
 
@@ -98,6 +109,7 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
+      if (kk >= d) break;
       const int r = warp * 16 + g;
       float a[8];
       a[0] = tcec::to_f32(sm.q[r][kk + 2 * t]);
@@ -192,6 +204,7 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
       const int kr = ks * 16 + 2 * t;
 #pragma unroll
       for (int j = 0; j < NT_O; ++j) {
+        if (j * 8 >= dv) break;
         const int c = j * 8 + g;
         float bb[4];
         bb[0] = tcec::to_f32(sm.v[kr][c]);
@@ -218,6 +231,7 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
       const int row = row0 + (i ? 8 : 0);
       if (row >= SQ) continue;
       const int c = j * 8 + 2 * t + (e & 1);
+      if (c >= dv) continue;
       const float l = l_i[i];
       O[b * osb + h * osh + row * oss + c] = l > 0.f ? acc[j][e] / l : 0.f;
     }
@@ -226,8 +240,8 @@ flash_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __re
 
 template <typename T, int D, int PASSES>
 cudaError_t launch_one(const void* Q, const void* K, const void* V, float* O, int B, int H,
-                       int rep, int SQ, int SKV, int kv_len, int causal, float scale,
-                       const long long* st, cudaStream_t stream) {
+                       int rep, int SQ, int SKV, int d, int dv, int kv_len, int causal,
+                       float scale, const long long* st, cudaStream_t stream) {
   const size_t smem = sizeof(Smem<T, D>);
   auto kern = flash_fwd_kernel<T, D, PASSES>;
   // Above 48 KB of dynamic shared memory the kernel must opt in first.
@@ -237,30 +251,49 @@ cudaError_t launch_one(const void* Q, const void* K, const void* V, float* O, in
   dim3 grid((SQ + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(Q), static_cast<const T*>(K), static_cast<const T*>(V), O, H, rep,
-      SQ, SKV, kv_len, causal, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      SQ, SKV, d, dv, kv_len, causal, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dmax(const void* Q, const void* K, const void* V, float* O, int B, int H,
+                        int rep, int SQ, int SKV, int d, int dv, int kv_len, int causal,
+                        float scale, const long long* st, cudaStream_t s) {
+  const int dm = d > dv ? d : dv;
+  if (dm <= 32)
+    return launch_one<T, 32, REPRO_PASSES>(Q, K, V, O, B, H, rep, SQ, SKV, d, dv, kv_len,
+                                           causal, scale, st, s);
+  if (dm <= 64)
+    return launch_one<T, 64, REPRO_PASSES>(Q, K, V, O, B, H, rep, SQ, SKV, d, dv, kv_len,
+                                           causal, scale, st, s);
+  if (dm <= 128)
+    return launch_one<T, 128, REPRO_PASSES>(Q, K, V, O, B, H, rep, SQ, SKV, d, dv, kv_len,
+                                            causal, scale, st, s);
+  return launch_one<T, 256, REPRO_PASSES>(Q, K, V, O, B, H, rep, SQ, SKV, d, dv, kv_len,
+                                          causal, scale, st, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B, H, SQ, D), k/v (B, H/rep, SKV, D) given by element strides
-// (batch, head, seq; the last dim contiguous), all fp32 or all bf16; o fp32
-// with strides (batch, head, seq).  strides: q[3], k[3], v[3], o[3].
+// q (B, H, SQ, d), k (B, H/rep, SKV, d) and v (B, H/rep, SKV, dv) given by
+// element strides (batch, head, seq; the last dim contiguous), all fp32 or
+// all bf16; o (B, H, SQ, dv) fp32 with strides (batch, head, seq).  d, dv <=
+// 256.  strides: q[3], k[3], v[3], o[3].
 int repro_flash_attention(const void* Q, const void* K, const void* V, float* O, int B,
-                          int H, int rep, int SQ, int SKV, int D, int kv_len, int causal,
-                          float scale, int is_bf16, int passes, const long long* strides,
-                          void* stream) {
-  // Built for head dim 64 (qwen2's); other head dims are not instantiated.
-  if (D != 64 || passes != REPRO_PASSES) return static_cast<int>(cudaErrorInvalidValue);
+                          int H, int rep, int SQ, int SKV, int d, int dv, int kv_len,
+                          int causal, float scale, int is_bf16, int passes,
+                          const long long* strides, void* stream) {
+  if (d < 1 || d > 256 || dv < 1 || dv > 256 || passes != REPRO_PASSES)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch_one<__nv_bfloat16, 64, REPRO_PASSES>(Q, K, V, O, B, H, rep, SQ, SKV,
-                                                           kv_len, causal, scale, strides, s)
-              : launch_one<float, 64, REPRO_PASSES>(Q, K, V, O, B, H, rep, SQ, SKV, kv_len,
-                                                   causal, scale, strides, s);
+      is_bf16 ? launch_dmax<__nv_bfloat16>(Q, K, V, O, B, H, rep, SQ, SKV, d, dv, kv_len,
+                                          causal, scale, strides, s)
+              : launch_dmax<float>(Q, K, V, O, B, H, rep, SQ, SKV, d, dv, kv_len, causal,
+                                   scale, strides, s);
   return static_cast<int>(err);
 }
 

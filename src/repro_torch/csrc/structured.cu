@@ -30,8 +30,8 @@
 // against 2·block_n operations per element, below the card's ≈ 295
 // operations per byte.  This first version loads A with 4-byte loads straight
 // into the fragment registers (K7/K8) and stages x through shared memory as
-// bf16 words with synchronous 4-byte loads (K9); vectorised or asynchronous
-// copies are later work.
+// bf16 words with synchronous 4-byte loads (K9, in k-slices of at most 4096
+// columns); vectorised or asynchronous copies are later work.
 //
 // Ragged shapes are masked in the kernels: rows, columns and the contraction
 // past m, k, rows or block_n read as zero and are not stored.
@@ -158,15 +158,23 @@ __global__ void __launch_bounds__(RULE_WARPS * 32)
 // K9: a block owns 16 rows and walks the column blocks in order, carrying
 // each row's fp32 offset (the reference's (rows, 1) scratch).  Per column
 // block the 16 x block_n tile of x is staged in shared memory as bf16 words
-// (rows padded to SCAN_PAD more elements), then each warp computes 32-column
-// groups of partial = bf16(x) · U over the whole block_n contraction, adds
-// the carry and stores; the value at column block_n - 1 becomes the carry.
+// (rows padded to SCAN_PAD more elements), a k-slice of at most SCAN_SLICE
+// columns at a time, so any block_n fits; each warp computes 32-column groups
+// of partial = bf16(x) · U, one k16 step after another in k order, adds the
+// carry and stores; the value at column block_n - 1 becomes the carry.  With
+// more than one slice a group's running sum waits in the output between
+// slices (fp32, so exactly), and the next slice goes on adding to it: the
+// same sums in the same order as one slice.
 constexpr int SCAN_WARPS = 8;
 constexpr int SCAN_ROWS = 16;
 constexpr int SCAN_PAD = 8;
+constexpr int SCAN_SLICE = 4096;  // 16 x (4096 + 8) bf16 = 131 KB of shared memory
 
 __host__ __device__ constexpr int scan_kpad(int bn) { return (bn + 15) / 16 * 16; }
-__host__ __device__ constexpr int scan_lds(int bn) { return scan_kpad(bn) + SCAN_PAD; }
+__host__ __device__ constexpr int scan_slice(int bn) {
+  return scan_kpad(bn) < SCAN_SLICE ? scan_kpad(bn) : SCAN_SLICE;
+}
+__host__ __device__ constexpr int scan_lds(int bn) { return scan_slice(bn) + SCAN_PAD; }
 
 // u(k, c) = [k <= c] inside the block_n x block_n block, zero outside.
 __device__ __forceinline__ float tri(int k, int c, int bn) {
@@ -183,50 +191,73 @@ __global__ void __launch_bounds__(SCAN_WARPS * 32)
   __shared__ float carry_next[SCAN_ROWS];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * SCAN_ROWS;
-  const int kpad = scan_kpad(bn), lds = scan_lds(bn), groups = (bn + 31) / 32;
+  const int kpad = scan_kpad(bn), slice = scan_slice(bn), lds = scan_lds(bn);
+  const int groups = (bn + 31) / 32;
   float carry[2] = {0.f, 0.f};  // rows r0 + g and r0 + g + 8
 
   for (int j0 = 0; j0 < n; j0 += bn) {
-    __syncthreads();  // every warp is done reading the previous tile
-    for (int c = tid; c < kpad; c += SCAN_WARPS * 32) {
-      float x[SCAN_ROWS];
+    for (int k0 = 0; k0 < kpad; k0 += slice) {
+      const int kend = k0 + slice < kpad ? k0 + slice : kpad;
+      const bool first = k0 == 0, last = kend == kpad;
+      __syncthreads();  // every warp is done reading the previous tile
+      for (int c = tid; c < kend - k0; c += SCAN_WARPS * 32) {
+        const int col = k0 + c;
+        float x[SCAN_ROWS];
 #pragma unroll
-      for (int r = 0; r < SCAN_ROWS; ++r)
-        x[r] = (r0 + r < rows && c < bn) ? X[static_cast<long long>(r0 + r) * n + j0 + c] : 0.f;
+        for (int r = 0; r < SCAN_ROWS; ++r)
+          x[r] = (r0 + r < rows && col < bn) ? X[static_cast<long long>(r0 + r) * n + j0 + col]
+                                             : 0.f;
 #pragma unroll
-      for (int r = 0; r < SCAN_ROWS; ++r)
-        xs[r * lds + c] = __bfloat16_as_ushort(__float2bfloat16_rn(x[r]));
-    }
-    __syncthreads();
-
-    for (int grp = warp; grp < groups; grp += SCAN_WARPS) {
-      const int c0 = 32 * grp;
-      float acc[NT][4] = {};
-      for (int kk = 0; kk < kpad; kk += 16) {
-        // x's A fragment: (g, 2t..2t+1), (g+8, ...), (g, 2t+8..2t+9), (g+8, ...).
-        uint32_t fa[1][4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          fa[0][q] = ld_pair(xs + (g + 8 * (q & 1)) * lds + kk + 2 * t + 8 * (q >> 1));
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          // U's B fragment: (k = kk + 2t + {0, 1}, c) and (k = kk + 2t + {8, 9}, c).
-          const int c = c0 + 8 * nt + g, k = kk + 2 * t;
-          uint32_t fb[1][2] = {{pack2(tri(k, c, bn), tri(k + 1, c, bn)),
-                                pack2(tri(k + 8, c, bn), tri(k + 9, c, bn))}};
-          tcec::mma_passes<1>(acc[nt], fa, fb);
-        }
+        for (int r = 0; r < SCAN_ROWS; ++r)
+          xs[r * lds + c] = __bfloat16_as_ushort(__float2bfloat16_rn(x[r]));
       }
+      __syncthreads();
+
+      for (int grp = warp; grp < groups; grp += SCAN_WARPS) {
+        const int c0 = 32 * grp;
+        // The group's running sum: zero on the first slice, else what the
+        // previous slice stored (the same thread stored it).
+        float acc[NT][4];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rr = g + 8 * (e >> 1), col = c0 + 8 * nt + 2 * t + (e & 1);
-          if (col >= bn) continue;
-          const float o = acc[nt][e] + carry[e >> 1];  // o = partial + carry
-          if (r0 + rr < rows) O[static_cast<long long>(r0 + rr) * n + j0 + col] = o;
-          if (col == bn - 1) carry_next[rr] = o;       // then carry = o[:, -1]
+          for (int e = 0; e < 4; ++e) {
+            const int rr = g + 8 * (e >> 1), col = c0 + 8 * nt + 2 * t + (e & 1);
+            acc[nt][e] = !first && col < bn && r0 + rr < rows
+                             ? O[static_cast<long long>(r0 + rr) * n + j0 + col]
+                             : 0.f;
+          }
+        for (int kk = k0; kk < kend; kk += 16) {
+          // x's A fragment: (g, 2t..2t+1), (g+8, ...), (g, 2t+8..2t+9), (g+8, ...).
+          uint32_t fa[1][4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            fa[0][q] = ld_pair(xs + (g + 8 * (q & 1)) * lds + kk - k0 + 2 * t + 8 * (q >> 1));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            // U's B fragment: (k = kk + 2t + {0, 1}, c) and (k = kk + 2t + {8, 9}, c).
+            const int c = c0 + 8 * nt + g, k = kk + 2 * t;
+            uint32_t fb[1][2] = {{pack2(tri(k, c, bn), tri(k + 1, c, bn)),
+                                  pack2(tri(k + 8, c, bn), tri(k + 9, c, bn))}};
+            tcec::mma_passes<1>(acc[nt], fa, fb);
+          }
         }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rr = g + 8 * (e >> 1), col = c0 + 8 * nt + 2 * t + (e & 1);
+            if (col >= bn) continue;
+            const long long at = static_cast<long long>(r0 + rr) * n + j0 + col;
+            if (!last) {
+              if (r0 + rr < rows) O[at] = acc[nt][e];  // the running sum, for the next slice
+              continue;
+            }
+            const float o = acc[nt][e] + carry[e >> 1];  // o = partial + carry
+            if (r0 + rr < rows) O[at] = o;
+            if (col == bn - 1) carry_next[rr] = o;       // then carry = o[:, -1]
+          }
+      }
     }
     __syncthreads();
     carry[0] = carry_next[g];

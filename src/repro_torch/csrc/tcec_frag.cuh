@@ -1,0 +1,98 @@
+// Fragment and copy helpers shared by the kernels that stage source tiles
+// with cp.async and feed mma.sync from shared memory: K2
+// (tcec_matmul_k2.cu) and K4 (paged_attention.cu).  The split words are
+// still made in registers by K1 (tcec_core.cuh); nothing here stages a word.
+#pragma once
+
+#include <type_traits>
+
+#include "tcec_core.cuh"
+
+namespace frag {
+
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// Words of an operand at dtype T under a PASSES schedule that can be nonzero:
+// a bf16 value is its own word 0 and its other words are exactly 0.
+template <typename T, int PASSES>
+__host__ __device__ constexpr int op_words() {
+  return is_bf16<T> ? 1 : tcec::n_words(PASSES);
+}
+
+// 16-byte asynchronous copy global -> shared; .cg keeps it out of L1.  With
+// ok false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Programmatic dependent launch: a dependent grid may be scheduled once every
+// block of this grid has called launch_dependents (or exited); wait_primary
+// blocks until the grid this one depends on has completed and its memory is
+// visible (a no-op in a grid launched without the attribute).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+__device__ __forceinline__ void wait_primary() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+// Four 8x8 bf16 matrices, transposed on the way: lane L addresses row L % 8
+// of matrix L / 8, and receives elements (2t, g), (2t + 1, g) of each.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// The same without the transpose: lane L receives elements (g, 2t), (g, 2t +
+// 1) of each matrix.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// The schedule's passes of one k16 step that can be nonzero, in schedule
+// order: pass p multiplies n8-operand word sched_a(p) (the reference's lhs)
+// by m16-operand word sched_b(p) (its rhs); it runs when both are below the
+// operands' word counts.  Fresh accumulator per pass, passes summed in fp32,
+// the sum added to acc (K1).
+template <int PASSES, int NWX, int NWW>
+__device__ __forceinline__ void run_passes(float (&acc)[4], const uint32_t (&fw)[NWW][4],
+                                           const uint32_t (&fx)[NWX][2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  int done = 0;
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int i = tcec::sched_a(PASSES, p), j = tcec::sched_b(PASSES, p);
+    if (i < NWX && j < NWW) {
+      float d[4];
+      tcec::mma_16816(d, fw[j < NWW ? j : 0], fx[i < NWX ? i : 0]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[e] = done ? part[e] + d[e] : d[e];
+      ++done;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// Passes run_passes runs under PASSES for operand word counts (NWX, NWW).
+__host__ __device__ constexpr int passes_run(int passes, int nwx, int nww) {
+  int n = 0;
+  for (int p = 0; p < passes; ++p)
+    if (tcec::sched_a(passes, p) < nwx && tcec::sched_b(passes, p) < nww) ++n;
+  return n;
+}
+
+}  // namespace frag

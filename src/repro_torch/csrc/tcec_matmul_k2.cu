@@ -52,64 +52,24 @@
 // step's passes are summed in fp32 in schedule order and added to the running
 // sum.  Ragged m/n/k edges are masked in-kernel.  Corrected policies (passes
 // > 1) sanitize non-finite inputs to 0 while loading fragments and raise a
-// device flag; the wrapper restores the fp32 reference's +-inf/NaN pattern.
-#include <type_traits>
-
-#include "tcec_core.cuh"
+// device flag; the non-finite fix-up (nonfinite_fixup.cuh) then restores the
+// fp32 reference's +-inf/NaN pattern on the card, with no host read: folded
+// into k2_reduce where the call has splits, else launched after k2_kernel as
+// its programmatic dependent.  Both come from the one host call.
+#include "epilogue.cuh"
+#include "nonfinite_fixup.cuh"
+#include "tcec_frag.cuh"
 
 namespace {
 
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_TANH = 4 };
-
-__device__ __forceinline__ float apply_act(float y, int act) {
-  switch (act) {
-    case ACT_RELU: return y < 0.f ? 0.f : y;
-    case ACT_GELU: {
-      // jax.nn.gelu default: the tanh approximation.
-      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-      return y * (0.5f * (1.f + tanhf(c * (y + 0.044715f * (y * y * y)))));
-    }
-    case ACT_SILU: return y * (1.f / (1.f + expf(-y)));
-    case ACT_TANH: return tanhf(y);
-    default: return y;
-  }
-}
-
-__device__ __forceinline__ float load_any(const void* p, long long i, int is_bf16) {
-  return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                 : static_cast<const float*>(p)[i];
-}
-
-// The epilogue of one output element o (column n): scale -> bias -> act ->
-// residual -> out dtype, in the order of the reference's store.
-struct Epilogue {
-  void* out;
-  const void* bias;
-  const void* res;
-  float scale;
-  int act, bias_bf16, res_bf16, out_bf16;
-
-  __device__ __forceinline__ void store(long long o, int n, float y) const {
-    if (scale != 1.f) y = y * scale;
-    if (bias != nullptr) y = y + load_any(bias, n, bias_bf16);
-    y = apply_act(y, act);
-    if (res != nullptr) y = y + load_any(res, o, res_bf16);
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
-    else
-      static_cast<float*>(out)[o] = y;
-  }
-};
-
-template <typename T>
-constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// Words of an operand at dtype T under a PASSES schedule that can be nonzero:
-// a bf16 value is its own word 0.
-template <typename T, int PASSES>
-__host__ __device__ constexpr int op_words() {
-  return is_bf16<T> ? 1 : tcec::n_words(PASSES);
-}
+using epi::Epilogue;
+using frag::cp_async16;
+using frag::cp_async_commit;
+using frag::cp_async_wait;
+using frag::is_bf16;
+using frag::ldsm_x4_trans;
+using frag::op_words;
+using frag::run_passes;
 
 // The tiles.  WN x WM warps, each FN m16 tiles (16 output columns) by FM n8
 // tiles (8 output rows), times WK warps that take turns over the k16 steps
@@ -141,27 +101,6 @@ struct Smem {
   static constexpr int BYTES = STAGES * STAGE;
   static_assert(W_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte aligned tiles");
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;  // src-size 0: zero-fill, nothing is read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices, transposed on the way: lane L addresses row L % 8
-// of matrix L / 8, and receives elements (2t, g), (2t + 1, g) of each.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
 
 // A pair of bf16 values with each non-finite half zeroed when GUARD; `bad`
 // collects a nonzero bit for every non-finite value.  Adding 0x80 to a
@@ -228,41 +167,6 @@ __device__ __forceinline__ void x_frag(const float* x, int ldx, int kk, int mb, 
   float b[4] = {guard_f32<GUARD>(lo.x, bad), guard_f32<GUARD>(lo.y, bad),
                 guard_f32<GUARD>(hi.x, bad), guard_f32<GUARD>(hi.y, bad)};
   tcec::split_b_frag<NWX>(b, f);
-}
-
-// The schedule's passes of one k16 step that can be nonzero, in schedule
-// order: pass p multiplies activation word sched_a(p) by weight word
-// sched_b(p); it runs when both are below the operands' word counts.  Fresh
-// accumulator per pass, passes summed in fp32, the sum added to acc (K1).
-template <int PASSES, int NWX, int NWW>
-__device__ __forceinline__ void run_passes(float (&acc)[4], const uint32_t (&fw)[NWW][4],
-                                           const uint32_t (&fx)[NWX][2]) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  int done = 0;
-#pragma unroll
-  for (int p = 0; p < PASSES; ++p) {
-    const int i = tcec::sched_a(PASSES, p), j = tcec::sched_b(PASSES, p);
-    if (i < NWX && j < NWW) {
-      float d[4];
-      tcec::mma_16816(d, fw[j < NWW ? j : 0], fx[i < NWX ? i : 0]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[e] = done ? part[e] + d[e] : d[e];
-      ++done;
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += part[e];
-}
-
-// Passes a (TX, TW) call runs under PASSES (for the host's report).
-template <typename TX, typename TW, int PASSES>
-constexpr int passes_run() {
-  int n = 0;
-  for (int p = 0; p < PASSES; ++p)
-    if (tcec::sched_a(PASSES, p) < op_words<TX, PASSES>() &&
-        tcec::sched_b(PASSES, p) < op_words<TW, PASSES>())
-      ++n;
-  return n;
 }
 
 struct Problem {
@@ -432,17 +336,28 @@ k2_kernel(const TX* __restrict__ X, const TW* __restrict__ W, float* __restrict_
 // The split partials of every output element added in split order, then the
 // epilogue.  ws: (splits, total) fp32.  Launched as a programmatic dependent
 // of k2_kernel, so its blocks are resident before k2_kernel ends; it waits
-// for k2_kernel's completion and memory here.
+// for k2_kernel's completion and memory here.  A guarded call (nonfinite not
+// null) folds in the non-finite fix-up: when k2_kernel raised the flag, an
+// element whose fp32 reference dot is not finite stores that dot instead.
 __global__ void __launch_bounds__(256)
-k2_reduce(const float* __restrict__ ws, long long total, int N, int splits, Epilogue ep) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+k2_reduce(const float* __restrict__ ws, long long total, int N, int splits, Epilogue ep,
+          const int* __restrict__ nonfinite, fixup::Operands F) {
+  frag::wait_primary();
   const long long o = blockIdx.x * 256LL + threadIdx.x;
   if (o >= total) return;
   float y = ws[o];
   for (int s = 1; s < splits; ++s) y += ws[s * total + o];
-  ep.store(o, static_cast<int>(o % N), y);
+  const int n = static_cast<int>(o % N);
+  if (nonfinite != nullptr && *nonfinite != 0) {
+    const long long mn = static_cast<long long>(F.M) * N;
+    const float ref = fixup::ref_dot(F, o / mn, static_cast<int>(o % mn / N), n);
+    if (!isfinite(ref)) y = ref;
+  }
+  ep.store(o, n, y);
 }
 
+// K2's kernel, then with splits its reduce, else (a guarded call) the
+// fix-up; the second kernel is a programmatic dependent of the first.
 template <typename TX, typename TW, class C>
 cudaError_t launch(const void* A, const void* B, float* ws, int* nonfinite, int batch,
                    const Problem& P, const Epilogue& ep, cudaStream_t stream) {
@@ -450,7 +365,14 @@ cudaError_t launch(const void* A, const void* B, float* ws, int* nonfinite, int 
   k2_kernel<TX, TW, REPRO_PASSES, C><<<grid, C::THREADS, 0, stream>>>(
       static_cast<const TX*>(A), static_cast<const TW*>(B), ws, nonfinite, P, ep);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || P.splits == 1) return err;
+  if (err != cudaSuccess) return err;
+  const fixup::Operands F{A, B, is_bf16<TX>, is_bf16<TW>, P.M, P.N, P.K,
+                          P.sXb, P.K, 1, P.sWb, P.N, 1};
+  if (P.splits == 1) {
+    if (nonfinite == nullptr) return err;
+    return fixup::launch(nonfinite, F, batch, static_cast<long long>(P.M) * P.N, P.N, 1, ep,
+                         true, stream);
+  }
   const long long total = (long long)batch * P.M * P.N;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>((total + 255) / 256));
@@ -462,7 +384,7 @@ cudaError_t launch(const void* A, const void* B, float* ws, int* nonfinite, int 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, k2_reduce, static_cast<const float*>(ws), total, P.N,
-                           P.splits, ep);
+                           P.splits, ep, static_cast<const int*>(nonfinite), F);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -485,8 +407,11 @@ extern "C" {
 // dtype.  The plan (kernels/tcec_matmul.py::k2_plan): tile 0 (decode) or 1
 // (prefill), `splits` k ranges of `chunk` elements (a multiple of 16) each;
 // with splits > 1, ws holds splits * batch * M * N floats and a second kernel
-// reduces it.  Enqueues everything on `stream`; returns cudaGetLastError()
-// after the launches (0 on success).
+// reduces it.  nonfinite (a zeroed device int, or null for an unguarded
+// policy) is raised by the kernel on a non-finite input; the reduce kernel,
+// or with one split a fix-up kernel, then restores the fp32 reference's
+// +-inf/NaN pattern.  Enqueues everything on `stream`; returns
+// cudaGetLastError() after the launches (0 on success).
 int repro_tcec_matmul(const void* A, const void* B, void* C, const void* bias,
                       const void* res, int* nonfinite, int M, int N, int K, int batch,
                       long long sAb, long long sBb, int a_bf16, int b_bf16, int passes,
@@ -519,11 +444,8 @@ int repro_tcec_matmul(const void* A, const void* B, void* C, const void* bias,
 // How many passes of this library's schedule K2 runs for the operand dtypes
 // (a bf16 operand has one nonzero word).
 int repro_tcec_matmul_passes_run(int a_bf16, int b_bf16) {
-  using bf = __nv_bfloat16;
-  if (a_bf16 && b_bf16) return passes_run<bf, bf, REPRO_PASSES>();
-  if (a_bf16) return passes_run<bf, float, REPRO_PASSES>();
-  if (b_bf16) return passes_run<float, bf, REPRO_PASSES>();
-  return passes_run<float, float, REPRO_PASSES>();
+  const int nw = tcec::n_words(REPRO_PASSES);
+  return frag::passes_run(REPRO_PASSES, a_bf16 ? 1 : nw, b_bf16 ? 1 : nw);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -26,13 +26,16 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
+from repro_torch.core.counters import COUNTERS, LaunchCounter, counter  # noqa: F401
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: Pass counts the TCEC kernels are built for (bf16x1, bf16x3, bf16x6); each
 #: is its own library so the builds run in parallel.
 PASSES = (1, 3, 6)
 #: library -> (source in ``csrc``, extra nvcc flags, the pass counts it is
-#: built for).  K7-K9 (``structured``) run one bf16 pass.
+#: built for).  K7-K9 (``structured``) run one bf16 pass; the non-finite
+#: fix-up runs no pass.
 LIBS = {
     "tcec_matmul": ("tcec_matmul_k2.cu", (), PASSES),
     "tcec_matmul_k2b": ("tcec_matmul.cu", (), PASSES),
@@ -40,6 +43,7 @@ LIBS = {
     "flash_attention": ("flash_attention.cu", (), PASSES),
     "paged_attention": ("paged_attention.cu", (), PASSES),
     "structured": ("structured.cu", (), (1,)),
+    "nonfinite_fixup": ("nonfinite_fixup.cu", (), (1,)),
 }
 #: The tile menu of K2b, K5 and K6, (bm, bn, bk) — the list of
 #: ``csrc/tcec_tile.cuh::dispatch``.  Every warp owns a 32 x 32 output tile.
@@ -154,28 +158,3 @@ def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``, as a pointer for ctypes."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
-
-
-class LaunchCounter:
-    """Counts a kernel's launches: its wrapper adds one where it launches
-    the kernel, and nowhere else (plain-version calls do not count)."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.n = 0
-
-    def hit(self) -> None:
-        self.n += 1
-
-    def reset(self) -> None:
-        self.n = 0
-
-
-#: kernel name -> its launch counter (one per wrapper module).
-COUNTERS: Dict[str, LaunchCounter] = {}
-
-
-def counter(name: str) -> LaunchCounter:
-    c = LaunchCounter(name)
-    COUNTERS[name] = c
-    return c

@@ -4,8 +4,10 @@ Counterpart of ``repro.kernels.flash_attention.flash_attention`` (forward).
 ``flash_attention`` launches the CUDA kernel of ``csrc/flash_attention.cu``
 on CUDA tensors and runs ``flash_attention_plain`` on CPU tensors.
 
-Layout (the reference's): q (b, h, sq, d); k/v (b, kvh, skv, d) with
-h % kvh == 0 — GQA reads kv head ``hh // rep``, no head copies.  The
+Layout (the reference's): q (b, h, sq, d); k (b, kvh, skv, d) and v (b,
+kvh, skv, dv) with h % kvh == 0 — GQA reads kv head ``hh // rep``, no head
+copies.  The kernel takes d, dv <= 256 (a build per bucket of max(d, dv):
+32, 64, 128, 256).  The
 kernel takes strided q/k/v (the model passes transposed views) and writes
 its fp32 output through strides too.  ``kv_len`` masks kv columns >= kv_len
 and is a runtime argument; fully masked rows return zeros.  Output dtype
@@ -31,7 +33,8 @@ NEG_INF = -1e30
 #: The kernel's kv tile; the plain version runs its online softmax over
 #: blocks of the same width, so the two round P at the same places.
 BLOCK_KV = 64
-_HEAD_DIMS = (64,)
+#: The largest head dims (d and dv) the kernel takes.
+MAX_HEAD_DIM = 256
 
 
 def _out_dtype(pol: TcecPolicy, q: torch.Tensor) -> torch.dtype:
@@ -95,7 +98,7 @@ def _entry(passes: int):
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                        ctypes.c_float, ci, ci, ctypes.POINTER(ctypes.c_longlong),
                        vp]
         fn.restype = ci
@@ -107,10 +110,13 @@ def _launch(q, k, v, pol, causal, kv_len):
     passes = kernel_passes(pol, what)
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS or v.shape[-1] != d:
+    dv = v.shape[-1]
+    if k.shape[-1] != d:
+        raise ValueError(f"{what}: q head dim {d}, k head dim {k.shape[-1]}")
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"{what}: head dim {d} (dv {v.shape[-1]}) — the kernel is built "
-            f"for d == dv in {_HEAD_DIMS}")
+            f"{what}: head dims d={d}, dv={dv} — the kernel takes d, dv <= "
+            f"{MAX_HEAD_DIM}")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device or x.dtype != q.dtype:
             raise ValueError(f"{what}: {name} must match q's device and dtype")
@@ -121,7 +127,7 @@ def _launch(q, k, v, pol, causal, kv_len):
             raise ValueError(f"{what}: {name}'s last dim must be contiguous")
     # Output (b, sq, h, d): the layout the model reshapes next, written
     # through (batch, head, seq) strides.
-    out = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, h, dv), dtype=torch.float32, device=q.device)
     ot = out.transpose(1, 2)
     if out.numel() == 0:
         return ot
@@ -129,7 +135,7 @@ def _launch(q, k, v, pol, causal, kv_len):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *ot.stride()[:3])
     lib, fn = _entry(passes)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            h // kvh, sq, skv, d, kv_len, int(causal), 1.0 / (d ** 0.5),
+            h // kvh, sq, skv, d, dv, kv_len, int(causal), 1.0 / (d ** 0.5),
             int(q.dtype == torch.bfloat16), passes, strides,
             _build.stream_ptr(q.device))
     _build.check(lib, rc, what)
@@ -141,10 +147,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     policy: TcecPolicy | str | None = None,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """Fused flash attention: q (b, h, sq, d), k/v (b, kvh, skv, d) ->
-    (b, h, sq, d).  ``policy`` is resolved at the ``"attn"`` site when not
-    given.  CUDA tensors launch the kernel (the vpu arm, bf16x9 and head
-    dims other than 64 raise); CPU tensors run the plain version."""
+    """Fused flash attention: q (b, h, sq, d), k (b, kvh, skv, d), v (b,
+    kvh, skv, dv) -> (b, h, sq, dv).  ``policy`` is resolved at the
+    ``"attn"`` site when not given.  CUDA tensors launch the kernel (the vpu
+    arm, bf16x9 and head dims above 256 raise); CPU tensors run the plain
+    version."""
     pol = resolve_policy(policy, "attn")
     kv_len = _check(q, k, v, kv_len)
     if q.is_cuda:

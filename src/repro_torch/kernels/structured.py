@@ -215,9 +215,9 @@ def scan_cumsum_plain(x: torch.Tensor, block_n: int = 256) -> torch.Tensor:
 
 
 def scan_launcher(x: torch.Tensor, block_n: int = 256):
-    """Validate a K9 call on a CUDA tensor; returns ``(out, launch)``.  The
-    block's 16 x block_n bf16 tile lives in shared memory, so block_n is
-    bounded by the card's (7248 on an H100: the launch raises beyond)."""
+    """Validate a K9 call on a CUDA tensor; returns ``(out, launch)``.  Any
+    block_n that divides n: the kernel stages the block's 16 x block_n
+    tile in k-slices of at most 4096 columns."""
     what = "scan_cumsum"
     block_n = _scan_block(x, block_n)
     rows, n = x.shape

@@ -30,12 +30,16 @@ Shapes: a (m, k) or (b, m, k); b (k, n) or (b, k, n) (a batched rhs needs a
 batched lhs).  Ragged edges are masked in the kernels, not padded on the
 host.
 
-The non-finite guard stays on the host, as in the reference: corrected
-policies split sanitized operands and, when an input was non-finite, the
-fp32 reference dot's ±inf/NaN entries replace the kernel's at those
-positions.  K2/K2b learn the inputs' finiteness from a device flag their
-kernel raises while splitting; K5/K6 check on the host.  Either way it is
-one host sync per call under a corrected policy.
+The non-finite guard: corrected policies split sanitized operands and,
+when an input was non-finite, the fp32 reference dot's ±inf/NaN entries
+(through the epilogue) replace the kernel's at those positions.  On the card
+it never reads the device from the host, as the reference's ``lax.cond``
+does not: K2 and K2b raise a device flag while splitting, K5/K6 get theirs
+from torch ops on the inputs, and the fix-up kernel
+(``repro_torch.kernels.nonfinite``) reads the flag on the card and returns
+at once when it is clear.  K2 enqueues the fix-up from its own entry point
+(folded into its reduce kernel when the call has splits); the others call
+it after their kernel.  The plain versions (CPU tensors) check on the host.
 """
 from __future__ import annotations
 
@@ -53,6 +57,8 @@ from repro_torch.core.precision import split_words
 from repro_torch.core.tcec import nonfinite_guard, sanitize_nonfinite
 from repro_torch.tcec.epilogue import ACTIVATIONS
 from . import _build
+from .nonfinite import LAUNCHES as LAUNCHES_FIXUP
+from .nonfinite import nonfinite_fixup, nonfinite_flag
 from .tcec_core import dot_params, kernel_passes, policy_dot
 
 __all__ = ["tcec_matmul_fused", "tcec_matmul_plain", "tcec_matmul_pallas",
@@ -236,12 +242,13 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
              activation=None, out_dtype=None):
     """Validate a CUDA call, plan it (``k2_plan``) and allocate its output
     and split workspace; returns ``(out, flag, launch)`` where ``launch()``
-    enqueues the call's device work on the current stream — K2 and, with
-    more than one split, its reduce kernel; each counted, no host sync —
-    and ``flag`` is the device int that a guarded policy's kernel sets on a
-    non-finite input (``None`` when unguarded).  ``launch.plan`` is the
-    plan.  ``tcec_matmul_fused`` is this plus the guard; timing code
-    enqueues ``launch`` alone."""
+    enqueues the call's device work on the current stream in one host call
+    — K2 and, with more than one split, its reduce kernel (which under a
+    guarded policy also runs the non-finite fix-up), else under a guarded
+    policy the fix-up kernel; each counted, no host sync — and ``flag`` is
+    the device int that a guarded policy's kernel sets on a non-finite input
+    (``None`` when unguarded).  ``launch.plan`` is the plan.
+    ``tcec_matmul_fused`` is this; timing code enqueues ``launch``."""
     what = "tcec_matmul"
     passes = kernel_passes(pol, what)
     nb, m, n, k = _check_shapes(a, b)
@@ -297,20 +304,17 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
         LAUNCHES.hit()
         if split:
             LAUNCHES_REDUCE.hit()
+        elif flag is not None:
+            LAUNCHES_FIXUP.hit()
 
     launch.plan = plan
     return out, flag, launch
 
 
 def _launch(a, b, pol, bias, residual, scale, activation, out_dtype):
-    out, flag, launch = launcher(a, b, pol, bias, residual, scale,
-                                 activation, out_dtype)
+    out, _, launch = launcher(a, b, pol, bias, residual, scale, activation,
+                              out_dtype)
     launch()
-    if flag is not None:
-        epilogue = functools.partial(_epilogue_ref, scale=scale, bias=bias,
-                                     activation=activation, residual=residual)
-        out = nonfinite_guard(out, a, b, _matmul32, post=epilogue,
-                              finite=not bool(flag.item()))
     return out
 
 
@@ -360,12 +364,16 @@ def _out32(a: torch.Tensor, nb: int, m: int, n: int) -> torch.Tensor:
                        dtype=torch.float32, device=a.device)
 
 
-def _guarded(out, pol, a, b, finite=None):
-    """The host-level non-finite guard of a corrected policy's result."""
+def _fixup(out, pol, a, b, flag=None):
+    """The non-finite guard of a corrected policy's result on the card: the
+    fix-up kernel on ``flag`` (from torch ops on the inputs when the kernel
+    raised none).  No host read."""
     if not _needs_guard(pol):
         return out
-    return nonfinite_guard(out, a.float(), b.float(), _matmul32,
-                           finite=finite)
+    a32, b32 = a.float(), b.float()
+    if flag is None:
+        flag = nonfinite_flag(a32, b32)
+    return nonfinite_fixup(out, a32, b32, flag)
 
 
 def _k2b_passes(pol: TcecPolicy, what: str) -> int:
@@ -417,8 +425,7 @@ def tcec_matmul_pallas(a: torch.Tensor, b: torch.Tensor,
     if a.is_cuda:
         out, flag, launch = pallas_launcher(a, b, pol, block)
         launch()
-        return _guarded(out, pol, a, b,
-                        finite=None if flag is None else not bool(flag.item()))
+        return _fixup(out, pol, a, b, flag)
     return tcec_matmul_plain(a.float(), b.float(), pol)
 
 
@@ -494,7 +501,7 @@ def _staged(a, b, policy, block, double_buffer):
     if a.is_cuda:
         out, launch = staged_launcher(a, b, pol, block, double_buffer)
         launch()
-        return _guarded(out, pol, a, b)
+        return _fixup(out, pol, a, b)
     return tcec_matmul_staged_plain(a, b, pol)
 
 

@@ -41,6 +41,7 @@ import torch
 from repro_torch.core.context import resolve_policy
 from repro_torch.core.policy import TcecPolicy
 from repro_torch.core.tcec import split_contract
+from repro_torch.kernels.nonfinite import einsum_fixup, nonfinite_flag
 from .epilogue import Epilogue, NO_EPILOGUE
 from .operands import FragmentOperand
 from .planner import parse_equation, plan_einsum
@@ -111,7 +112,20 @@ def _contract(eq: str, a: torch.Tensor, b: torch.Tensor,
     if pol.passes == 1 and precision == "native":
         dt = mma_dtype(a.device)
         return torch.einsum(eq, a.to(dt).float(), b.to(dt).float())
-    return split_contract(eq, a, b, pol)
+    return split_contract(eq, a, b, pol,
+                          guard=_device_guard if a.is_cuda else None)
+
+
+def _device_guard(eq: str, out: torch.Tensor, a32: torch.Tensor,
+                  b32: torch.Tensor) -> Optional[torch.Tensor]:
+    """The twin's non-finite guard on the card: a device flag and the
+    fix-up kernel, no host read.  None (the host check) for an equation the
+    fix-up cannot read as a batched product: one that sums a label of one
+    operand only or repeats a label."""
+    try:
+        return einsum_fixup(eq, out, a32, b32, nonfinite_flag(a32, b32))
+    except NotImplementedError:
+        return None
 
 
 def _run_kernel(pattern: str, pol: TcecPolicy, a: torch.Tensor,

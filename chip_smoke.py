@@ -10,7 +10,9 @@ It imports nothing of JAX or of the ``repro`` package.  It
      ``sm_90a``, one compiler per library and pass count, all started
      together);
   1. holds each kernel against its plain PyTorch version on the card at the
-     shapes its path gives it (K3 also at head dims 128 and 256; K4 also at
+     shapes its path gives it (K3 also at a long prefill of 2048 positions
+     and at head dims 128 and 256, each row with its plan, passes, emulated
+     TFLOP/s and fp32 SDPA with ``enable_gqa`` beside it; K4 also at
      a long context its plan splits and at every head-dim bucket, with the
      plan and passes each row ran, timed through its wrapper and as the
      enqueue alone; the non-finite fix-up against its plain version with
@@ -38,7 +40,9 @@ It imports nothing of JAX or of the ``repro`` package.  It
      checks that no non-finite guard reads the device from the host on a
      decode tick (the guard-sync counter stays 0), and runs one more tick
      under torch's sync debug mode to list every host sync left and where
-     it comes from;
+     it comes from (none may come from the model code); then it times the
+     first tick, which prefills every prompt, and profiles it (K3's device
+     time per prefill);
   3. drives ``tcec_matmul_auto`` under ``REPRO_TUNE=measure`` (fresh plan
      cache under ``build/``) over the paper's batched-SGEMM sweep, a 4096^3
      product and qwen2-0.5b's w_gate at prefill: the chosen (variant, tile),
@@ -63,7 +67,11 @@ wrapper on its path, one per call; ``enqueues``: what one call puts on the
 stream), and as its last line
 ``{"ok": true, "device": {...}}``.  Full tables go to
 ``build/chip_smoke.json``.  ``--parity-only`` stops after phase 1 and prints
-no result line.
+no result line; so do ``--k3-only`` (K3 alone: what ``ptxas -v`` says of
+each instantiation, its phase-1 rows and the probes of ``K3_PROBES``) and
+``--profile-only`` (phase 2's profiles alone).  ``--src DIR`` drives the
+``repro_torch`` package under DIR instead of this checkout's, so an earlier
+commit's tree, unpacked, is measured by the same code.
 """
 from __future__ import annotations
 
@@ -387,16 +395,42 @@ def check_k2_ragged(dev, gen):
           f"(fix-up folded into the reduce and on its own)", flush=True)
 
 
-#: K3's rows: (b, h, kvh, sq, d, dv); the first is qwen2-0.5b's prefill
-#: (the headline), the others the larger head dims the kernel takes.
-K3_SHAPES = ((1, 14, 2, 256, 64, 64), (1, 14, 2, 256, 128, 128),
-             (1, 14, 2, 256, 256, 256))
+#: K3's rows: name -> (b, h, kvh, sq, d, dv, causal, input dtype).
+#: "headline" is qwen2-0.5b's prefill at the smoke's longest prompt; "long"
+#: a prefill of 2048 positions, where the (b, h, q tile) grid alone fills
+#: the card; the others the larger head dims the kernel takes.
+K3_SHAPES = {"headline": (1, 14, 2, 256, 64, 64, True, "float32"),
+             "long": (1, 14, 2, 2048, 64, 64, True, "float32"),
+             "d128": (1, 14, 2, 256, 128, 128, True, "float32"),
+             "d256": (1, 14, 2, 256, 256, 256, True, "float32")}
+#: More K3 rows under ``--k3-only`` (bf16x6 alone), which tell the causes
+#: of its time apart: a non-causal call (twice the pairs, every block the
+#: same length), bf16 inputs (fewer words to split and passes to run), four
+#: sequences (four times the blocks at the same chain length) and one q
+#: tile of 64 rows (the chain of one kv tile).
+K3_PROBES = {"noncausal": (1, 14, 2, 256, 64, 64, False, "float32"),
+             "bf16_in": (1, 14, 2, 256, 64, 64, True, "bfloat16"),
+             "b4": (4, 14, 2, 256, 64, 64, True, "float32"),
+             "sq64": (1, 14, 2, 64, 64, 64, True, "float32")}
 
 
-def check_k3(dev, rows):
+def k3_work(b, h, sq, skv, causal, d, dv, qk, pv):
+    """(pairs, emulated flops, tensor-core flops) of a K3 call: the (row,
+    column) pairs it must score, 2 pairs (d + dv) h b for the fp32 product
+    it stands for, and the same with each contraction times its passes."""
+    pairs = sum(min(skv, r + 1) for r in range(sq)) if causal else sq * skv
+    return (pairs, 2.0 * pairs * (d + dv) * h * b,
+            2.0 * pairs * (d * qk + dv * pv) * h * b)
+
+
+def check_k3(dev, rows, shapes=None, policies=("bf16x1", "bf16x3",
+                                                "bf16x6")):
     """K3 against its plain version (1e-5 max-norm; bf16x1 on a 1/8 grid)
-    at qwen2-0.5b's prefill shape and at head dims 128 and 256, causal;
-    times beside fp32 SDPA and the bound."""
+    at each row of ``shapes`` (``K3_SHAPES`` by default) under
+    ``policies``: the plan and passes each row ran, times beside the plain
+    version, SDPA (``enable_gqa``; at the headline also over heads copied
+    by ``repeat_interleave``, the earlier yardstick), the bound and the
+    emulated TFLOP/s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.policy import get_policy
@@ -404,42 +438,111 @@ def check_k3(dev, rows):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
     headline = None
-    for b, h, kvh, s, d, dv in K3_SHAPES:
-        normal = [torch.randn(b, n, s, e, generator=gen, device=dev)
+    for shape, (b, h, kvh, s, d, dv, causal, dt) in (shapes
+                                                      or K3_SHAPES).items():
+        dtype = getattr(torch, dt)
+        normal = [torch.randn(b, n, s, e, generator=gen,
+                              device=dev).to(dtype)
                   for n, e in ((h, d), (kvh, d), (kvh, dv))]
         grid = [on_grid(x, gen) for x in normal]
-        for name in ("bf16x1", "bf16x3", "bf16x6"):
+        for name in policies:
             pol = get_policy(name)
             q, k, v = grid if name == "bf16x1" else normal
-            got = fa.flash_attention(q, k, v, causal=True, policy=pol)
-            plain = fa.flash_attention_plain(q, k, v, pol, causal=True)
+            got = fa.flash_attention(q, k, v, causal=causal, policy=pol)
+            # The plain version's fp32, in the wrapper's output dtype (bf16
+            # for bf16 inputs under the uncorrected bf16x1).
+            plain = fa.flash_attention_plain(q, k, v, pol, causal=causal
+                                             ).to(got.dtype)
             err = max_rel(got, plain)
             if err >= 1e-5:
-                fail(f"K3 d={d} dv={dv} {name}: kernel vs plain {err:.3e} "
-                     f">= 1e-5")
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                fail(f"K3 {shape} {name}: kernel vs plain {err:.3e} >= 1e-5")
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                     policy=pol))
             plain_ms = time_ms(lambda: fa.flash_attention_plain(
-                q, k, v, pol, causal=True))
+                q, k, v, pol, causal=causal), reps=3 if s > 512 else 10,
+                queued=False)
+            q32, k32, v32 = (x.float() for x in (q, k, v))
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k.repeat_interleave(h // kvh, 1),
-                v.repeat_interleave(h // kvh, 1), is_causal=True))
-            pairs = s * (s + 1) // 2                   # causal (row, col)
-            n_bytes = (q.numel() + k.numel() + v.numel() + b * h * s * dv) * 4
-            b_ms, b_by = bound_ms(n_bytes, 2.0 * pairs * (d + dv) * h * b
-                                  * pol.passes)
-            row = dict(kernel="flash_attention", b=b, h=h, kvh=kvh, sq=s, d=d,
-                       dv=dv, causal=True, policy=name, rel_err_vs_plain=err,
-                       max_abs_err=float((got - plain).abs().max()), ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
+                q32, k32, v32, is_causal=causal, enable_gqa=True))
+            lib_copy_ms = None
+            if shape == "headline":
+                lib_copy_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    q32, k32.repeat_interleave(h // kvh, 1),
+                    v32.repeat_interleave(h // kvh, 1), is_causal=causal))
+            if hasattr(fa, "k3_passes"):
+                from repro_torch.kernels.tcec_matmul import plan_sms
+                qk, pv = fa.k3_passes(pol, q.dtype, k.dtype)
+                plan_d = dataclasses.asdict(fa.k3_plan(
+                    b, h, kvh, s, s, causal, d, dv, plan_sms(dev)))
+            else:                    # an earlier tree: every pass, no plan
+                qk = pv = tuple(pol.schedule)
+                plan_d = None
+            pairs, flops, tc_flops = k3_work(b, h, s, s, causal, d, dv,
+                                             len(qk), len(pv))
+            n_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size() \
+                + b * h * s * dv * 4
+            b_ms, b_by = bound_ms(n_bytes, tc_flops)
+            row = dict(kernel="flash_attention", shape=shape, b=b, h=h,
+                       kvh=kvh, sq=s, d=d, dv=dv, causal=causal, dtype=dt,
+                       policy=name, plan=plan_d,
+                       passes_qk=[list(p) for p in qk],
+                       passes_pv=[list(p) for p in pv],
+                       rel_err_vs_plain=err,
+                       max_abs_err=float((got.float() - plain.float()).abs()
+                                         .max()), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       library_repeat_ms=lib_copy_ms, bound_ms=b_ms,
+                       bound_by=b_by, emulated_tflops=flops / ms / 1e9,
+                       sdpa_tflops=flops / lib_ms / 1e9)
             rows.append(row)
-            print(f"K3 ({b},{h},{s},{d}/{dv}) kvh{kvh} causal {name}: plain "
-                  f"{err:.2e} | {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
-                  f"{lib_ms:.4f}, bound {b_ms:.4f} {b_by})", flush=True)
-            if (d, name) == (64, "bf16x6"):
+            copies = "" if lib_copy_ms is None else \
+                f", over copied heads {lib_copy_ms:.4f}"
+            print(f"K3 {shape:9s} ({b},{h},{s},{d}/{dv}) kvh{kvh} "
+                  f"{'causal' if causal else 'full'} {dt} {name}: plan "
+                  f"{plan_d} passes {len(qk)}+{len(pv)} | plain {err:.2e} | "
+                  f"{ms:.4f} ms = {row['emulated_tflops']:.2f} emulated "
+                  f"TFLOP/s (plain {plain_ms:.4f}, sdpa gqa {lib_ms:.4f} = "
+                  f"{row['sdpa_tflops']:.2f} TFLOP/s{copies}, bound "
+                  f"{b_ms:.4f} {b_by})", flush=True)
+            if (shape, name) == ("headline", "bf16x6"):
                 headline = row
     return headline
+
+
+def k3_build_report(build):
+    """What ``ptxas -v`` said of each K3 instantiation: registers, spill
+    stores and loads, stack and static shared memory, per library and
+    kernel (the dynamic shared memory is the kernel's own count)."""
+    out = {}
+    for log in sorted(build.glob("libflash_attention_p*.log")):
+        kernels, cur = [], None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = dict(kernel=m.group(1), registers=0, stack=0,
+                           spill_stores=0, spill_loads=0, static_smem=0)
+                kernels.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+        out[log.stem] = kernels
+        for k in kernels:
+            print(f"  {log.stem}: {k['registers']:3d} regs, spill "
+                  f"{k['spill_stores']}/{k['spill_loads']} B st/ld, stack "
+                  f"{k['stack']} B, static smem {k['static_smem']} B  "
+                  f"{k['kernel'][:90]}", flush=True)
+    return out
 
 
 #: K4's rows: name -> (seq_lens, d, dv).  "headline" is the serving shape
@@ -796,9 +899,12 @@ def serve(dev, cfg, params, prompts, policy):
     return out, info
 
 
-def profile_decode(dev, cfg, params, prompts, ticks: int = 3):
+def profile_decode(dev, cfg, params, prompts, ticks: int = 3,
+                   strict: bool = True):
     """Device time by kernel over ``ticks`` decode ticks of the kernel path
-    (torch.profiler), and the device's busy share of the wall time."""
+    (torch.profiler), and the device's busy share of the wall time; then
+    one tick under torch's sync debug mode lists every host sync left.
+    ``strict``: fail if one comes from the model code (ROADMAP D7)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -870,6 +976,10 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3):
             where[f"{path}:{w.lineno}"] += 1
     print(f"sync debug tick: {sum(where.values())} host syncs: "
           f"{dict(where)}", flush=True)
+    from_models = {k: n for k, n in where.items()
+                   if "repro_torch/models/" in k}
+    if from_models and strict:
+        fail(f"host syncs from the model code on a decode tick: {from_models}")
     return dict(wall_ms_per_tick=wall, busy_ms_per_tick=busy,
                 idle_share=1 - busy / wall, k2_ms_per_tick=k2,
                 k2_reduce_ms_per_tick=k2_reduce,
@@ -879,6 +989,92 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3):
                 k4_share_of_tick=k4 / wall, fixup_ms_per_tick=fixup,
                 sync_debug_tick=dict(where),
                 top_kernels_ms_per_tick=top)
+
+
+#: K3's kernels by name in a profile, this tree's and earlier trees'.
+K3_KERNELS = ("k3_fwd", "k3_merge", "flash_fwd_kernel")
+
+
+def profile_prefill(dev, cfg, params, prompts, reps: int = 3):
+    """The engine's first tick of the kernel path, which prefills every
+    prompt (``SLOTS`` of them): its wall time on the host clock to a sync
+    (median of ``reps`` fresh engines), and one more under torch.profiler:
+    K3's device time per prefill, the tick's device busy time and idle
+    share, and the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.context import policy_scope
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import PagedServingEngine
+
+    def first_tick(prof=None):
+        eng = PagedServingEngine(
+            cfg, params, page_size=PAGE, max_concurrency=SLOTS,
+            max_seq_len=max(map(len, prompts)) + N_NEW + 1, device=dev)
+        for p in prompts:
+            eng.submit(p, N_NEW)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if prof is None else prof:
+            eng.step()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, eng.stats["prefills"], \
+            launch_counts()
+
+    with policy_scope("bf16x6_pallas"):
+        first_tick()                                   # warm up
+        walls = sorted(first_tick()[0] for _ in range(reps))
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        wall, prefills, counts = first_tick(prof)
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+    busy = sum(by_kernel.values())
+    k3 = sum(v for key, v in by_kernel.items()
+             if any(n in key for n in K3_KERNELS))
+    if not k3 or counts.get("flash_attention") != cfg.n_layers * prefills:
+        fail(f"prefill tick: K3 not seen ({k3} ms, launches {counts})")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    out = dict(prefill_tick_ms_median=walls[len(walls) // 2],
+               prefill_tick_ms=walls, prefills_per_tick=prefills,
+               profiled_wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+               k3_ms_per_prefill=k3 / prefills,
+               k3_launches_per_prefill=counts["flash_attention"] / prefills,
+               top_kernels_ms=top)
+    print(f"prefill tick ({prefills} prompts {list(map(len, prompts))}): "
+          f"median {out['prefill_tick_ms_median']:.2f} ms over {reps} fresh "
+          f"engines; profiled {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"(idle {100 * out['idle_share']:.1f}%); K3 "
+          f"{out['k3_ms_per_prefill']:.3f} ms of device time per prefill "
+          f"({out['k3_launches_per_prefill']:.0f} launches)", flush=True)
+    for name, ms in top:
+        print(f"  {ms:8.3f} ms  {name[:100]}")
+    return out
+
+
+def serve_model(dev):
+    """qwen2-0.5b at full width with random bf16 weights from ``SEED``, and
+    the smoke's four prompts (64, 256 and two seeded lengths)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, dev)
+    rs = np.random.default_rng(SEED)
+    lens = [64, 256] + [int(n) for n in rs.integers(64, 257, 2)]
+    prompts = [[int(t) for t in rs.integers(0, cfg.vocab, n)] for n in lens]
+    return cfg, gen, params, lens, prompts
 
 
 @contextlib.contextmanager
@@ -947,18 +1143,9 @@ def check_argmax(what, xs, refs, bound) -> None:
 
 def check_serve(dev, results):
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.context import policy_scope
-    from repro_torch.models import init_params
     from repro_torch.models.model import _logits
-    import numpy as np
-    cfg = get_config("qwen2-0.5b")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    params = init_params(cfg, gen, dev)
-    rs = np.random.default_rng(SEED)
-    lens = [64, 256] + [int(n) for n in rs.integers(64, 257, 2)]
-    prompts = [[int(t) for t in rs.integers(0, cfg.vocab, n)] for n in lens]
+    cfg, gen, params, lens, prompts = serve_model(dev)
     print(f"serve: qwen2-0.5b full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}), prompts {lens}, {N_NEW} new tokens each, page "
           f"{PAGE}, {SLOTS} slots", flush=True)
@@ -995,6 +1182,8 @@ def check_serve(dev, results):
     print(f"serve bf16x6_pallas: {info_k['tokens']} tokens in "
           f"{info_k['seconds']:.3f} s = {info_k['tok_per_s']:.1f} tok/s, "
           f"decode tick median {info_k['decode_tick_ms_median']:.2f} ms, "
+          f"prefill ticks {[round(t, 2) for t in info_k['prefill_tick_ms']]} "
+          f"ms, "
           f"launches {info_k['launches']} (expected); host syncs by a "
           f"non-finite guard: 0 per decode tick", flush=True)
 
@@ -1068,10 +1257,12 @@ def check_serve(dev, results):
           f"{err32:.3e} (bound 1e-5); tied LM head twin at decode shape "
           f"{head_ms:.2f} ms", flush=True)
     profile = profile_decode(dev, cfg, params, prompts)
+    prefill_profile = profile_prefill(dev, cfg, params, prompts)
     results["serve"] = dict(kernel_run=info_k, twin_run=info_t,
                             prefill_logit_err=errs, lm_head_ms=head_ms,
                             prompt_lens=lens, greedy_equal=same,
-                            decode_profile=profile)
+                            decode_profile=profile,
+                            prefill_profile=prefill_profile)
     return info_k
 
 
@@ -1489,16 +1680,31 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parity-only", action="store_true",
                     help="build and run phase 1 only; no result line")
+    ap.add_argument("--k3-only", action="store_true",
+                    help="build K3 alone, print what ptxas says of it, run "
+                         "its phase-1 rows and the probes of K3_PROBES; no "
+                         "result line")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="build, then profile the serving path alone: three "
+                         "decode ticks with the sync-debug tick (reported, "
+                         "not checked) and the first tick's prefills; no "
+                         "result line")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the directory holding the repro_torch package to "
+                         "drive (default: this checkout's src), e.g. an "
+                         "earlier commit's unpacked tree, to measure it with "
+                         "this script")
     args = ap.parse_args(argv)
+    src = args.src.resolve()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from a "
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found — run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1510,6 +1716,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from repro_torch.kernels import _build
+    if args.k3_only:
+        _build.LIBS = {"flash_attention": _build.LIBS["flash_attention"]}
     t_start = t0 = time.perf_counter()
     build = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s -> {build}",
@@ -1528,8 +1736,31 @@ def main(argv=None) -> int:
               f"kernels, max {max(regs, default=0)} registers/thread, "
               f"{spill} bytes of spill traffic in all")
 
-    results = {"card": card, "torch": torch.__version__,
-               "build": build_info}
+    results = {"card": card, "torch": torch.__version__, "src": str(src),
+               "build": build_info, "k3_build": k3_build_report(build)}
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    if args.profile_only:
+        cfg, _, params, _, prompts = serve_model(dev)
+        dec = profile_decode(dev, cfg, params, prompts, strict=False)
+        pre = profile_prefill(dev, cfg, params, prompts)
+        summary = dict(
+            decode={k: dec[k] for k in ("wall_ms_per_tick", "busy_ms_per_tick",
+                                        "idle_share", "sync_debug_tick")},
+            prefill={k: v for k, v in pre.items() if k != "top_kernels_ms"})
+        print(json.dumps(summary), flush=True)
+        print("profile-only: passed", file=sys.stderr)
+        return 0
+    if args.k3_only:
+        rows = []
+        check_k3(dev, rows)
+        check_k3(dev, rows, K3_PROBES, ("bf16x6",))
+        results["kernels"] = rows
+        (out_dir / "chip_smoke_k3.json").write_text(
+            json.dumps(results, indent=1))
+        print(f"k3-only: passed in {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr)
+        return 0
     rows = []
     heads = {"tcec_matmul": check_k2(dev, rows, l2_flush(dev)),
              "flash_attention": check_k3(dev, rows),
@@ -1537,8 +1768,6 @@ def main(argv=None) -> int:
              **check_family(dev, rows),
              "nonfinite_fixup": check_fixup(dev, rows)}
     results["kernels"] = rows
-    out_dir = ROOT / "build"
-    out_dir.mkdir(exist_ok=True)
     if args.parity_only:
         (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
         print("parity-only: phase 1 passed", file=sys.stderr)
@@ -1590,6 +1819,8 @@ def main(argv=None) -> int:
                             info["launches"]),
     }
     enqueues = {
+        "flash_attention": "with one split, one kernel; with splits, three: "
+                           "the max pass, the split kernel, the merge",
         "tcec_matmul": "the product kernel; where k is split, a reduce "
                        "kernel with the fix-up folded in (also counted as "
                        "tcec_matmul_reduce); else, under a corrected "

@@ -1,7 +1,8 @@
 // Fragment and copy helpers shared by the kernels that stage source tiles
 // with cp.async and feed mma.sync from shared memory: K2
-// (tcec_matmul_k2.cu) and K4 (paged_attention.cu).  The split words are
-// still made in registers by K1 (tcec_core.cuh); nothing here stages a word.
+// (tcec_matmul_k2.cu), K3 (flash_attention.cu) and K4 (paged_attention.cu).
+// The split words are still made in registers (K1, tcec_core.cuh; K3 makes
+// the same words two values at a time); nothing here stages a word.
 #pragma once
 
 #include <type_traits>
@@ -78,6 +79,28 @@ __device__ __forceinline__ void run_passes(float (&acc)[4], const uint32_t (&fw)
     if (i < NWX && j < NWW) {
       float d[4];
       tcec::mma_16816(d, fw[j < NWW ? j : 0], fx[i < NWX ? i : 0]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[e] = done ? part[e] + d[e] : d[e];
+      ++done;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
+// The same with the operands in the reference's roles: pass p multiplies
+// m16-operand (lhs) word sched_a(p) by n8-operand (rhs) word sched_b(p).
+template <int PASSES, int NWA, int NWB>
+__device__ __forceinline__ void run_passes_ab(float (&acc)[4], const uint32_t (&fa)[NWA][4],
+                                              const uint32_t (&fb)[NWB][2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  int done = 0;
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int i = tcec::sched_a(PASSES, p), j = tcec::sched_b(PASSES, p);
+    if (i < NWA && j < NWB) {
+      float d[4];
+      tcec::mma_16816(d, fa[i < NWA ? i : 0], fb[j < NWB ? j : 0]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[e] = done ? part[e] + d[e] : d[e];
       ++done;

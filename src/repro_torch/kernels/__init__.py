@@ -10,7 +10,9 @@ each with its plain PyTorch version and a launch counter.
     ``tcec_matmul.tcec_matmul_staged_db`` — the staged-word baseline,
     synchronous and double-buffered; ``tcec_matmul.tcec_matmul_auto``
     dispatches to K2b, K5 or K6 through ``repro_torch.tune``;
-  * K3 ``flash_attention.flash_attention`` — prefill attention;
+  * K3 ``flash_attention.flash_attention`` — prefill attention (on
+    ``flash_attention.k3_plan``: where the grid is short of the card, kv
+    splits, their max pass and merge from one host call);
   * K4 ``repro_torch.serving.paged_attention.paged_decode_attention_kernel``
     — paged decode attention (scores, split softmax·V and merge kernels
     from one host call, on ``k4_plan``);

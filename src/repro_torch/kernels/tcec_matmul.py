@@ -204,6 +204,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def plan_sms(dev: torch.device) -> int:
+    """The SM count a plan is made for: the card's own, or an H100's 132
+    for a CPU tensor (so a plain version splits as the kernel would
+    there)."""
+    if dev.type != "cuda":
+        return 132
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+
+
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
 #: C entry point -> (library, argument types).

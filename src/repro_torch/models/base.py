@@ -106,12 +106,14 @@ def largest_divisor_leq(n: int, target: int) -> int:
 # ---------------------------------------------------------------------------
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
-    """positions (b, s) -> cos/sin (b, s, head_dim/2), fp32."""
+    """positions (b, s) -> cos/sin (b, s, head_dim/2), fp32.
+
+    The base is a Python scalar: a tensor made from ``theta`` on the card
+    would be a host-to-device copy, and so a host sync, in every layer."""
     half = head_dim // 2
     expo = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=positions.device), expo)
+    freq = torch.pow(float(theta), expo)
     ang = positions.float()[..., None] * freq
     return torch.cos(ang), torch.sin(ang)
 

@@ -35,7 +35,7 @@ from repro_torch.core.context import resolve_policy
 from repro_torch.core.policy import TcecPolicy
 from repro_torch.kernels import _build
 from repro_torch.kernels.tcec_core import dot_params, kernel_passes, policy_dot
-from repro_torch.kernels.tcec_matmul import _sm_count, k2_passes
+from repro_torch.kernels.tcec_matmul import k2_passes, plan_sms
 from .paged_cache import gather_pages
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_kernel",
@@ -98,15 +98,6 @@ def k4_passes(policy: TcecPolicy, q_dtype: torch.dtype,
     return k2_passes(policy, q_dtype, page_dtype)
 
 
-def _plan_sms(dev: torch.device) -> int:
-    """The SM count K4 plans for: the card's own, or an H100's 132 for a
-    CPU tensor (so the plain version splits as the kernel would there)."""
-    if dev.type != "cuda":
-        return 132
-    return _sm_count(dev.index if dev.index is not None
-                     else torch.cuda.current_device())
-
-
 def _corrected(pol: TcecPolicy) -> bool:
     return pol.error_correction or pol.backend == "vpu"
 
@@ -125,7 +116,7 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     _, page, kvh, _ = k_pages.shape
     rep, dv = h // kvh, v_pages.shape[-1]
     plan = k4_plan(b, kvh, rep, block_table.shape[1], page,
-                   _plan_sms(q.device), dv=dv)
+                   plan_sms(q.device), dv=dv)
     kw = dot_params(policy)
     kv = gather_pages(k_pages, block_table).float().transpose(1, 2)
     vv = gather_pages(v_pages, block_table).float().transpose(1, 2)
@@ -230,7 +221,7 @@ def launcher(q, k_pages, v_pages, block_table, seq_lens, scale, pol):
     dev = q.device
     npages = block_table.shape[1]
     rep = h // kvh
-    plan = k4_plan(b, kvh, rep, npages, page, _plan_sms(dev), dv=dv)
+    plan = k4_plan(b, kvh, rep, npages, page, plan_sms(dev), dv=dv)
     qf = q.float().contiguous()
     out = torch.empty((b, h, dv), dtype=torch.float32, device=dev)
     n_ws = _workspace_floats(b * h, plan, dv)

@@ -47,9 +47,10 @@ It imports nothing of JAX or of the ``repro`` package.  It
      cache under ``build/``) over the paper's batched-SGEMM sweep, a 4096^3
      product and qwen2-0.5b's w_gate at prefill: the chosen (variant, tile),
      every variant's best time, cuBLAS SGEMM's, the bounds, a cache hit on
-     a second plan, each variant's call time minus its kernel time, and
-     each kernel's shared memory and blocks per SM against the port's
-     footprint model;
+     a second plan, each variant's call time minus its kernel time, a
+     default (analytic) call's time around its kernel on its first call and
+     once its plan is kept, and each kernel's shared memory and blocks per
+     SM against the port's footprint model;
   4. drives the structured ops ``repro_torch.kernels.ops.householder``,
      ``givens`` and ``cumsum`` (K7-K9: H, G and the triangular ones made in
      registers) at the paper's benchmark shapes and at one shape per op
@@ -68,8 +69,11 @@ stream), and as its last line
 ``{"ok": true, "device": {...}}``.  Full tables go to
 ``build/chip_smoke.json``.  ``--parity-only`` stops after phase 1 and prints
 no result line; so do ``--k3-only`` (K3 alone: what ``ptxas -v`` says of
-each instantiation, its phase-1 rows and the probes of ``K3_PROBES``) and
-``--profile-only`` (phase 2's profiles alone).  ``--src DIR`` drives the
+each instantiation, its phase-1 rows and the probes of ``K3_PROBES``),
+``--k2b-only`` (K2b alone: what ``ptxas -v`` says of K2b and K6, and
+K2b at every shape of ``k2b_shapes()``, bitwise against K5 and K6 at every
+tile, with every kernel's time at every tile) and ``--profile-only``
+(phase 2's profiles alone).  ``--src DIR`` drives the
 ``repro_torch`` package under DIR instead of this checkout's, so an earlier
 commit's tree, unpacked, is measured by the same code.
 """
@@ -509,12 +513,29 @@ def check_k3(dev, rows, shapes=None, policies=("bf16x1", "bf16x3",
     return headline
 
 
-def k3_build_report(build):
-    """What ``ptxas -v`` said of each K3 instantiation: registers, spill
-    stores and loads, stack and static shared memory, per library and
-    kernel (the dynamic shared memory is the kernel's own count)."""
+def _kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled name (a length-prefixed
+    identifier ending in ``_kernel``), else the mangled name."""
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        name = mangled[m.end():m.end() + int(m.group(1))]
+        if name.endswith("_kernel"):
+            return name
+    return mangled
+
+
+def _template_args(mangled: str) -> str:
+    """The integer and bool template arguments of a mangled kernel name,
+    e.g. ``<6,0,64,64>``."""
+    return "<" + ",".join(re.findall(r"L[ib](-?\d+)E", mangled)) + ">"
+
+
+def ptxas_report(build, pattern):
+    """What ``ptxas -v`` said of each kernel in the build logs matching
+    ``pattern``: registers, spill stores and loads, stack and static shared
+    memory, per library and kernel (the dynamic shared memory is the
+    kernel's own count)."""
     out = {}
-    for log in sorted(build.glob("libflash_attention_p*.log")):
+    for log in sorted(build.glob(pattern)):
         kernels, cur = [], None
         for line in log.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -538,10 +559,11 @@ def k3_build_report(build):
                 cur["static_smem"] = int(sm.group(1)) if sm else 0
         out[log.stem] = kernels
         for k in kernels:
+            name = _kernel_name(k["kernel"])
             print(f"  {log.stem}: {k['registers']:3d} regs, spill "
                   f"{k['spill_stores']}/{k['spill_loads']} B st/ld, stack "
                   f"{k['stack']} B, static smem {k['static_smem']} B  "
-                  f"{k['kernel'][:90]}", flush=True)
+                  f"{name[:40]}{_template_args(k['kernel'])}", flush=True)
     return out
 
 
@@ -732,12 +754,15 @@ def check_fixup(dev, rows):
 #: at: name -> (lhs, rhs).  "oracle" is k = 4864, m = 256 (the fp64-oracle
 #: bounds' shape); "w_gate" qwen2-0.5b's gate layer at prefill; "batched"
 #: the paper's batched regime at s = 128; "ragged" a broadcast rhs with
-#: dims that no tile divides.
+#: dims that no tile divides; "unaligned" one whose k and n are not
+#: multiples of 4, so no row of either operand after the first starts on a
+#: 16-byte boundary.
 FAMILY_SHAPES = {
     "oracle": ((256, 4864), (4864, 896)),
     "w_gate": ((256, 896), (896, 4864)),
     "batched": ((256, 128, 128), (256, 128, 128)),
     "ragged": ((3, 40, 72), (72, 136)),
+    "unaligned": ((3, 37, 45), (45, 29)),
 }
 FAMILY_HEADLINE = ("batched", "bf16x6")
 
@@ -1299,7 +1324,7 @@ def footprints():
             smem = roofline.matmul_tile_footprint(*tile, pol.n_words,
                                                   variant)
             blocks = roofline.resident_blocks(
-                smem, _build.tile_threads(*tile[:2]), got["regs"])
+                smem, _build.tile_threads(*tile[:2], variant), got["regs"])
             row = dict(variant=variant, tile=list(tile), **got,
                        model_smem_bytes=smem, model_blocks_per_sm=blocks)
             table.append(row)
@@ -1307,32 +1332,77 @@ def footprints():
                   f"(model {smem:7d}), {got['threads']:3d} threads, "
                   f"{got['regs']:3d} regs, {got['blocks_per_sm']:2d} "
                   f"blocks/SM (model {blocks:2d})", flush=True)
+            threads = _build.tile_threads(*tile[:2], variant)
             if (got["smem_bytes"], got["blocks_per_sm"], got["threads"]) \
-                    != (smem, blocks, _build.tile_threads(*tile[:2])):
+                    != (smem, blocks, threads):
                 fail(f"footprint of {variant} {tile}: card {got}, model "
                      f"{smem} B, {blocks} blocks/SM")
     return table
 
 
+#: The kernel of each tuner variant (its launch counter's name).
+VARIANT_KERNEL = {"fused": "tcec_matmul_pallas", "vpu": "tcec_matmul_pallas",
+                  "staged": "tcec_matmul_staged",
+                  "staged_db": "tcec_matmul_staged_db"}
+
+
+def kernel_alone_us(a, b, pol, variant, tile):
+    """Microseconds of ``variant``'s kernel at ``tile`` with the kernel
+    alone enqueued (the host split of K5/K6 and the guard left out)."""
+    from repro_torch.kernels import tcec_matmul as tm
+    if variant in ("fused", "vpu"):
+        _, _, launch = tm.pallas_launcher(a, b, pol, tile)
+    else:
+        _, launch = tm.staged_launcher(a, b, pol, tile,
+                                       double_buffer=variant == "staged_db")
+    return time_ms(launch, reps=10) * 1e3
+
+
 def kernel_only_us(a, b, pol):
     """Each variant's best time over the tile menu with the kernel alone
-    enqueued (the host split of K5/K6 and the guard left out): the paper's
-    comparison of data flows.  Run after the path's launches are read."""
+    enqueued: the paper's comparison of data flows; and every (variant,
+    tile)'s time.  Run after the path's launches are read."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels import tcec_matmul as tm
     from repro_torch.tune import matmul_variants
-    best = {}
+    best, table = {}, {}
     for variant in matmul_variants(pol):
         for tile in _build.TILES:
-            if variant == "fused":
-                _, _, launch = tm.pallas_launcher(a, b, pol, tile)
-            else:
-                _, launch = tm.staged_launcher(
-                    a, b, pol, tile, double_buffer=variant == "staged_db")
-            us = time_ms(launch, reps=10) * 1e3
+            us = kernel_alone_us(a, b, pol, variant, tile)
+            table[(variant, tuple(tile))] = us
             if us < best.get(variant, (float("inf"),))[0]:
                 best[variant] = (us, list(tile))
-    return best
+    return best, table
+
+
+def default_call_cost(a, b, pol, kernel_us):
+    """A default ``tcec_matmul_auto`` call (the analytic tuner): its first
+    call after ``clear_plan_cache()`` (host clock, synchronized) and the
+    calls after it (CUDA events, not queued behind a sleep, so the host's
+    time shows), beside the kernel alone of the (variant, tile) its plan
+    runs (``kernel_us(variant, tile)``); each minus the kernel is the
+    call's cost around its kernel."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.kernels.tcec_matmul import tcec_matmul_auto
+    nb, (m, k), n = (a.shape[0] if a.dim() == 3 else 1), a.shape[-2:], \
+        b.shape[-1]
+    with tune.tune_mode("analytic"):
+        tune.clear_plan_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tcec_matmul_auto(a, b, pol)
+        torch.cuda.synchronize()
+        first_us = (time.perf_counter() - t0) * 1e6
+        call_us = time_ms(lambda: tcec_matmul_auto(a, b, pol),
+                          queued=False) * 1e3
+        plan = tune.matmul_plan(m, n, k, policy=pol, batch=nb,
+                                rhs_batched=b.dim() == 3, site="auto")
+    kern = kernel_us(plan.variant, tuple(plan.block))
+    return dict(default_plan=[plan.variant, list(plan.block)],
+                default_first_call_us=first_us, default_call_us=call_us,
+                default_kernel_us=kern,
+                default_first_call_minus_kernel_us=first_us - kern,
+                default_call_minus_kernel_us=call_us - kern)
 
 
 def check_auto(dev, results):
@@ -1395,7 +1465,10 @@ def check_auto(dev, results):
             for variant, block, us in plan.trials:
                 if us < best.get(variant, (float("inf"),))[0]:
                     best[variant] = (us, list(block))
-            kernel = kernel_only_us(a, b, pol)
+            kernel, table = kernel_only_us(a, b, pol)
+            default = default_call_cost(
+                a, b, pol, lambda v, t: table.get((v, t)) or
+                kernel_alone_us(a, b, pol, v, t))
             sgemm_ms = time_ms(lambda: torch.matmul(a, b))
             b_ms, b_by = family_bound(a, b, out, pol)
             row = dict(shape=name, batch=bt or 1, m=m, n=n, k=k,
@@ -1414,7 +1487,7 @@ def check_auto(dev, results):
                        sgemm_ms=sgemm_ms, sgemm_tflops=flops / sgemm_ms / 1e9,
                        bound_ms=b_ms, bound_by=b_by,
                        bound_tflops=flops / b_ms / 1e9,
-                       simt_peak_tflops=FP32_FLOPS / 1e12)
+                       simt_peak_tflops=FP32_FLOPS / 1e12, **default)
             rows.append(row)
             per = ", ".join(f"{v} {t:.1f} us {flops / t / 1e6:.2f} TF/s"
                             for v, (t, _) in sorted(best.items()))
@@ -1428,7 +1501,12 @@ def check_auto(dev, results):
                   f"{sgemm_ms * 1e3:.1f} us {row['sgemm_tflops']:.2f} TF/s | "
                   f"bound {b_ms * 1e3:.2f} us {row['bound_tflops']:.1f} TF/s "
                   f"({b_by}), fp32 SIMT peak 67 TF/s | oracle {err:.2e} | "
-                  f"cache hit", flush=True)
+                  f"cache hit | default call {default['default_plan']}: "
+                  f"first {default['default_first_call_us']:.1f} us, then "
+                  f"{default['default_call_us']:.1f} us, minus its kernel "
+                  f"{default['default_first_call_minus_kernel_us']:.1f} / "
+                  f"{default['default_call_minus_kernel_us']:.1f} us",
+                  flush=True)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1441,6 +1519,133 @@ def check_auto(dev, results):
     results["auto"] = dict(rows=rows, launches=counts, seconds=wall,
                            footprint=footprints())
     return counts
+
+
+#: K2b alone (``--k2b-only``): the phase-3 sweep, the phase-1 family shapes
+#: and a batched lhs against one shared rhs at the paper's largest batch.
+K2B_SHARED = {"b256_s128_shared": ((256, 128, 128), (128, 128))}
+K2B_POLICIES = ("bf16x1", "bf16x3", "bf16x6", "fp32_vpu")
+
+
+def k2b_shapes():
+    """name -> (lhs shape, rhs shape) of every ``--k2b-only`` row."""
+    shapes = {name: ((m, k), (k, n)) if bt is None else
+              ((bt, m, k), (bt, k, n))
+              for name, (bt, m, n, k) in SWEEP.items()}
+    shapes.update(FAMILY_SHAPES)
+    shapes.update(K2B_SHARED)
+    return shapes
+
+
+def k2b_checks(a, b, ga, gb, oracle, name, names, kernels, shape):
+    """``check_k2b``'s checks of one (shape, policy); returns the fp64-oracle
+    error and the error against the plain version."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import tcec_matmul as tm
+    pol = get_policy(name)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    base = tm.tcec_matmul_pallas(a, b, pol)
+    if launch_counts()["tcec_matmul_pallas"] != 1:
+        fail(f"K2b {shape} {name}: its launch counter did not move")
+    for kname in names:
+        for tile in _build.TILES:
+            if not same_bits(kernels[kname](a, b, pol, tile), base):
+                fail(f"{kname} {name} {shape} tile {tile}: not bitwise "
+                     f"equal to K2b at the default tile")
+    err_o = max_rel(base, oracle)
+    if not err_o < ORACLE_TOL[name]:
+        fail(f"K2b {name} {shape}: fp64-oracle error {err_o:.3e}")
+    pa, pb = (ga, gb) if name == "bf16x1" else (a, b)
+    err_p = max_rel(tm.tcec_matmul_pallas(pa, pb, pol),
+                    tm.tcec_matmul_plain(pa, pb, pol))
+    if not err_p < 1e-5:
+        fail(f"K2b {name} {shape}: kernel vs plain {err_p:.3e}")
+    return err_o, err_p
+
+
+def check_k2b(dev, rows, probe: bool = False):
+    """K2b alone at every shape of ``k2b_shapes`` under bf16x1/x3/x6 and
+    fp32_vpu: its launch counter moves on a default call; K2b, K5 and K6
+    bitwise equal at every tile of the menu; within 1e-5 (max-norm) of the
+    plain version (bf16x1 on a 1/8 grid) and within the fp64-oracle bound.
+    Times K2b, K5 and K6 with the kernel alone enqueued at every tile, fp32
+    ``torch.matmul`` and the bound (CUDA events).  With ``probe`` (a copy
+    of the kernel changed on purpose to tell the causes of its time apart)
+    it checks nothing and times K2b alone under the bf16 policies."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tcec_matmul as tm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    kernels = {"tcec_matmul_pallas": tm.tcec_matmul_pallas,
+               "tcec_matmul_staged": tm.tcec_matmul_staged,
+               "tcec_matmul_staged_db": tm.tcec_matmul_staged_db}
+    for shape, (sa, sb) in k2b_shapes().items():
+        a = torch.randn(sa, generator=gen, device=dev)
+        b = torch.randn(sb, generator=gen, device=dev)
+        ga, gb = (on_grid(x, gen) for x in (a, b))
+        oracle = torch.matmul(a.double(), b.double())
+        lib_ms = time_ms(lambda: torch.matmul(a, b))
+        flops = 2.0 * oracle.numel() * a.shape[-1]
+        for name in K2B_POLICIES[:3] if probe else K2B_POLICIES:
+            pol = get_policy(name)
+            names = ["tcec_matmul_pallas"] if pol.backend == "vpu" or probe \
+                else list(kernels)
+            base = tm.tcec_matmul_pallas(a, b, pol)
+            err_o = err_p = None
+            if not probe:
+                err_o, err_p = k2b_checks(a, b, ga, gb, oracle, name, names,
+                                          kernels, shape)
+            times = {}
+            for kname in names:
+                for tile in _build.TILES:
+                    if kname == "tcec_matmul_pallas":
+                        _, _, launch = tm.pallas_launcher(a, b, pol, tile)
+                    else:
+                        _, launch = tm.staged_launcher(
+                            a, b, pol, tile,
+                            double_buffer=kname == "tcec_matmul_staged_db")
+                    times.setdefault(kname, {})[str(tile[:2])] = \
+                        time_ms(launch, reps=10) * 1e3
+            best = {k: min(v.values()) for k, v in times.items()}
+            default = {}
+            if not probe and name == SWEEP_POLICY and shape in SWEEP:
+                default = default_call_cost(
+                    a, b, pol,
+                    lambda v, t: times[VARIANT_KERNEL[v]][str(t[:2])])
+            b_ms, b_by = family_bound(a, b, base, pol)
+            row = dict(shape=shape, lhs=list(sa), rhs=list(sb), policy=name,
+                       oracle_err=err_o, rel_err_vs_plain=err_p,
+                       kernel_us=times, best_us=best,
+                       emulated_tflops={k: flops / t / 1e6
+                                        for k, t in best.items()},
+                       library_us=lib_ms * 1e3, bound_us=b_ms * 1e3,
+                       bound_by=b_by, **default)
+            rows.append(row)
+            per = " | ".join(
+                f"{k.replace('tcec_matmul_', '')} "
+                + " ".join(f"{t:.1f}" for t in v.values())
+                for k, v in times.items())
+            checked = "unchecked (probe)" if probe else \
+                f"oracle {err_o:.2e} plain {err_p:.2e} bitwise"
+            print(f"K2b {shape:16s} {name:8s}: {checked} | us by tile "
+                  f"{[t[:2] for t in _build.TILES]}: {per} | best K2b "
+                  f"{best['tcec_matmul_pallas']:.1f} us = "
+                  f"{row['emulated_tflops']['tcec_matmul_pallas']:.2f} TF/s | "
+                  f"fp32 matmul {lib_ms * 1e3:.1f} | bound {b_ms * 1e3:.2f} "
+                  f"({b_by})", flush=True)
+            if default:
+                print(f"  default auto call {default['default_plan']}: first "
+                      f"{default['default_first_call_us']:.1f} us, then "
+                      f"{default['default_call_us']:.1f} us; kernel "
+                      f"{default['default_kernel_us']:.1f} us; minus it "
+                      f"{default['default_first_call_minus_kernel_us']:.1f} / "
+                      f"{default['default_call_minus_kernel_us']:.1f} us",
+                      flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1684,6 +1889,14 @@ def main(argv=None) -> int:
                     help="build K3 alone, print what ptxas says of it, run "
                          "its phase-1 rows and the probes of K3_PROBES; no "
                          "result line")
+    ap.add_argument("--k2b-only", action="store_true",
+                    help="build K2b, K5/K6 and the fix-up alone, print what "
+                         "ptxas says of K2b and K6, and run K2b alone at the "
+                         "shapes of k2b_shapes(); no result line")
+    ap.add_argument("--probe", action="store_true",
+                    help="with --k2b-only: time K2b alone under the bf16 "
+                         "policies and check nothing (for a copy of the "
+                         "kernel changed on purpose, driven through --src)")
     ap.add_argument("--profile-only", action="store_true",
                     help="build, then profile the serving path alone: three "
                          "decode ticks with the sync-debug tick (reported, "
@@ -1718,6 +1931,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     if args.k3_only:
         _build.LIBS = {"flash_attention": _build.LIBS["flash_attention"]}
+    if args.k2b_only:
+        _build.LIBS = {k: _build.LIBS[k] for k in (
+            "tcec_matmul_k2b", "tcec_staged", "nonfinite_fixup")}
     t_start = t0 = time.perf_counter()
     build = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s -> {build}",
@@ -1737,7 +1953,8 @@ def main(argv=None) -> int:
               f"{spill} bytes of spill traffic in all")
 
     results = {"card": card, "torch": torch.__version__, "src": str(src),
-               "build": build_info, "k3_build": k3_build_report(build)}
+               "build": build_info, "k3_build": ptxas_report(
+                   build, "libflash_attention_p*.log")}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     if args.profile_only:
@@ -1750,6 +1967,18 @@ def main(argv=None) -> int:
             prefill={k: v for k, v in pre.items() if k != "top_kernels_ms"})
         print(json.dumps(summary), flush=True)
         print("profile-only: passed", file=sys.stderr)
+        return 0
+    if args.k2b_only:
+        print("ptxas -v of K2b and of K5/K6:", flush=True)
+        results["k2b_build"] = ptxas_report(build, "libtcec_matmul_k2b_p*.log")
+        results["staged_build"] = ptxas_report(build, "libtcec_staged_p*.log")
+        rows = []
+        check_k2b(dev, rows, args.probe)
+        results["k2b"] = rows
+        (out_dir / "chip_smoke_k2b.json").write_text(
+            json.dumps(results, indent=1))
+        print(f"k2b-only: passed in {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr)
         return 0
     if args.k3_only:
         rows = []

@@ -105,10 +105,14 @@ LANE = 128
 MATMUL_VARIANTS = ("fused", "staged", "staged_db", "vpu")
 
 #: Row padding (elements) of the port's shared-memory tiles, as declared in
-#: ``csrc/tcec_matmul.cu`` (fp32 source tiles, ``APAD``/``BPAD``) and
+#: ``csrc/tcec_matmul.cu`` (fp32 source tiles, ``APAD``/``BPAD``: pitches of
+#: 8 and 4 words mod 32, conflict-free fragment reads) and
 #: ``csrc/tcec_staged.cu`` (bf16 word tiles, ``WPAD``: 16 bytes, which keeps
-#: every row 16-byte aligned for ``cp.async``).
-CUDA_FP32_PAD = 4
+#: every row 16-byte aligned for ``cp.async``); K2b's ring holds
+#: ``CUDA_K2B_SLOTS`` (A, B) k tiles (``NSLOT``).
+CUDA_FP32_PAD_A = 8
+CUDA_FP32_PAD_B = 4
+CUDA_K2B_SLOTS = 2
 CUDA_WORD_PAD = 8
 
 
@@ -128,9 +132,10 @@ def matmul_tile_footprint(bm: int, bn: int, bk: int, n_words: int,
     """Staging-tier bytes of one tile's working set (paper Fig. 6).
 
     On a ``cuda`` spec: the shared memory a block of the port's kernel asks
-    for.  ``fused`` (K2b) and ``vpu`` stage the fp32 source tiles and keep
-    the words and the accumulator in registers; ``staged`` (K5) stages all
-    ``2 * n_words`` bf16 word tiles; ``staged_db`` (K6) two slots of them.
+    for.  ``fused`` (K2b) and ``vpu`` stage the fp32 source tiles (a ring
+    of ``CUDA_K2B_SLOTS``) and keep the words and the accumulator in
+    registers; ``staged`` (K5) stages all ``2 * n_words`` bf16 word tiles;
+    ``staged_db`` (K6) two slots of them.
 
     Otherwise the reference's rule: ``fused``/``vpu`` stream the fp32 source
     blocks (double-buffered by Mosaic), ``staged`` ``n_words`` bf16 word
@@ -143,8 +148,8 @@ def matmul_tile_footprint(bm: int, bn: int, bk: int, n_words: int,
     chip = chip or active_chip()
     if chip.cuda:
         if variant in ("fused", "vpu"):
-            p = CUDA_FP32_PAD
-            return 4 * (bm * (bk + p) + bk * (bn + p))
+            return CUDA_K2B_SLOTS * 4 * (bm * (bk + CUDA_FP32_PAD_A)
+                                         + bk * (bn + CUDA_FP32_PAD_B))
         p = CUDA_WORD_PAD
         words = n_words * 2 * (bm * (bk + p) + bk * (bn + p))
         return words if variant == "staged" else 2 * words

@@ -1,8 +1,9 @@
 // Fragment and copy helpers shared by the kernels that stage source tiles
 // with cp.async and feed mma.sync from shared memory: K2
-// (tcec_matmul_k2.cu), K3 (flash_attention.cu) and K4 (paged_attention.cu).
-// The split words are still made in registers (K1, tcec_core.cuh; K3 makes
-// the same words two values at a time); nothing here stages a word.
+// (tcec_matmul_k2.cu), K2b (tcec_matmul.cu), K3 (flash_attention.cu) and K4
+// (paged_attention.cu).  The split words are still made in registers (K1,
+// tcec_core.cuh; K2b and K3 make the same words two values at a time);
+// nothing here stages a word.
 #pragma once
 
 #include <type_traits>
@@ -32,6 +33,45 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 4-byte asynchronous copy global -> shared (.ca: the only class that
+// takes 4 bytes), for a source that is not 16-byte aligned; with ok false
+// nothing is read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// Two fp32 values rounded to bf16 (RNE) by one cvt.rn.bf16x2.f32: lo in the
+// low half, as K1's pack2 packs them.
+__device__ __forceinline__ uint32_t cvt2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// The NW word registers of the pair (x0, x1), two values per conversion:
+// bitwise K1's split_pair for finite values (a guarded split sanitizes
+// first; one word is K1's plain cast of any value).  Only word 0 of a
+// multi-word split can overflow (the residuals are at most half a bf16 ulp
+// of the value), so only it is clamped to +-BF16_MAX, which is K1's
+// saturating bf16_word for a finite value; CLAMP false skips the clamp for
+// values known to lie within +-BF16_MAX.
+template <int NW, bool CLAMP = true>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t (&f)[NW]) {
+  const float m = tcec::bf16_max();
+  uint32_t w = NW > 1 && CLAMP ? cvt2(fminf(fmaxf(x0, -m), m), fminf(fmaxf(x1, -m), m))
+                               : cvt2(x0, x1);
+  f[0] = w;
+#pragma unroll
+  for (int i = 1; i < NW; ++i) {
+    x0 -= __uint_as_float(w << 16);
+    x1 -= __uint_as_float(w & 0xFFFF0000u);
+    w = cvt2(x0, x1);
+    f[i] = w;
+  }
 }
 
 // Programmatic dependent launch: a dependent grid may be scheduled once every

@@ -46,7 +46,8 @@ LIBS = {
     "nonfinite_fixup": ("nonfinite_fixup.cu", (), (1,)),
 }
 #: The tile menu of K2b, K5 and K6, (bm, bn, bk) — the list of
-#: ``csrc/tcec_tile.cuh::dispatch``.  Every warp owns a 32 x 32 output tile.
+#: ``csrc/tcec_tile.cuh::dispatch``.  A warp of K5/K6 owns a 32 x 32 output
+#: tile, a warp of K2b one of ``K2B_WARP_TILES``.
 TILES = ((32, 32, 32), (64, 64, 32), (128, 64, 32), (128, 128, 32))
 #: K2b's/K5's/K6's tile when no tile is asked for.
 DEFAULT_TILE = (64, 64, 32)
@@ -57,9 +58,19 @@ _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, int], ctypes.CDLL] = {}
 
 
-def tile_threads(bm: int, bn: int) -> int:
-    """Threads of a block at tile (bm, bn): one warp per 32 x 32 outputs."""
-    return (bm // 32) * (bn // 32) * 32
+#: K2b's warp tile (rows, columns) at each tile (bm, bn) of the menu — the
+#: table of ``csrc/tcec_matmul.cu::warp_rows``/``warp_cols``.
+K2B_WARP_TILES = {(32, 32): (16, 16), (64, 64): (32, 32), (128, 64): (32, 64),
+                  (128, 128): (32, 64)}
+
+
+def tile_threads(bm: int, bn: int, variant: str = "staged") -> int:
+    """Threads of a block of ``variant``'s kernel at tile (bm, bn): one warp
+    per 32 x 32 outputs in K5/K6 (``staged``, ``staged_db``), one per warp
+    tile of ``K2B_WARP_TILES`` in K2b (``fused``, ``vpu``)."""
+    wm, wn = K2B_WARP_TILES[(bm, bn)] if variant in ("fused", "vpu") \
+        else (32, 32)
+    return (bm // wm) * (bn // wn) * 32
 
 
 def _nvcc() -> str:

@@ -17,7 +17,8 @@ other.
   * ``tcec_matmul_pallas`` (K2b, ``csrc/tcec_matmul.cu``) — no epilogue,
     operands cast to fp32, fp32 out, over the tile menu (``_build.TILES``);
     words made in registers (the paper's WMMAe data flow); the vpu arm is a
-    plain FFMA product (the paper's "FP32 SIMT" baseline).
+    plain FFMA product (the paper's "FP32 SIMT" baseline).  ``k2b_plan``
+    gives its persistent grid and its copy widths.
   * ``tcec_matmul_staged`` (K5, ``csrc/tcec_staged.cu``) and
     ``tcec_matmul_staged_db`` (K6) — the WMMA-API baseline: the host splits
     both operands into bf16 word arrays and the kernel stages every word
@@ -64,7 +65,8 @@ from .tcec_core import dot_params, kernel_passes, policy_dot
 __all__ = ["tcec_matmul_fused", "tcec_matmul_plain", "tcec_matmul_pallas",
            "tcec_matmul_staged", "tcec_matmul_staged_db",
            "tcec_matmul_staged_plain", "tcec_matmul_auto", "kernel_attrs",
-           "k2_plan", "k2_passes", "K2Plan", "LAUNCHES"]
+           "k2_plan", "k2_passes", "K2Plan", "k2b_plan", "K2bPlan",
+           "LAUNCHES"]
 
 LAUNCHES = _build.counter("tcec_matmul")
 #: K2's second kernel, which adds the split partials (calls with splits > 1).
@@ -225,7 +227,7 @@ _ENTRIES = {
     "repro_tcec_matmul_passes_run": ("tcec_matmul", [_CI, _CI]),
     "repro_tcec_matmul_pallas": ("tcec_matmul_k2b", [
         _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL, _CI, _CI,
-        _CI, _CI, _VP]),
+        _CI, _CI, _CI, _CI, _VP]),
     "repro_tcec_matmul_pallas_attrs": ("tcec_matmul_k2b", [
         _CI, _CI, _CI, _PI, _PI, _PI, _PI]),
     "repro_tcec_staged": ("tcec_staged", [
@@ -392,18 +394,73 @@ def _k2b_passes(pol: TcecPolicy, what: str) -> int:
     return 1 if pol.backend == "vpu" else kernel_passes(pol, what)
 
 
+#: K2b's k tile (``csrc/tcec_tile.cuh::BK``).
+K2B_BK = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class K2bPlan:
+    """How K2b runs a call: ``items`` output tiles of ``steps`` k tiles
+    each, walked by ``grid`` persistent blocks, ``per_block`` tiles at most
+    each (block b takes tiles b, b + grid, ...); ``vec_a`` / ``vec_b``:
+    whether A / B take 16-byte copies (else 4-byte)."""
+    items: int
+    steps: int
+    grid: int
+    per_block: int
+    vec_a: bool
+    vec_b: bool
+
+    @property
+    def vec(self) -> int:
+        """The copy widths as the C entry point takes them."""
+        return int(self.vec_a) | int(self.vec_b) << 1
+
+
+def k2b_plan(m: int, n: int, k: int, batch: int, tile, resident: int,
+             sms: int = 132, a_ptr: int = 0, b_ptr: int = 0) -> K2bPlan:
+    """K2b's plan for a (batch, m, k) @ (k, n) call at ``tile`` (bm, bn, bk)
+    on a card of ``sms`` SMs that holds ``resident`` of its blocks per SM:
+    one block per output tile up to the blocks the card holds at once, and
+    persistent blocks that share the tiles beyond that; 16-byte copies of an
+    operand whose rows are whole 16-byte chunks (k, resp. n, a multiple of
+    4) and whose base address ``a_ptr`` / ``b_ptr`` is 16-byte aligned.  A
+    plain function of its arguments."""
+    bm, bn = tile[0], tile[1]
+    items = batch * -(-m // bm) * -(-n // bn)
+    if items >= 2 ** 31:
+        raise ValueError(f"tcec_matmul_pallas: {items} output tiles; the "
+                         f"kernel counts them in 32 bits")
+    grid = max(1, min(items, resident * sms))
+    return K2bPlan(items, max(1, -(-k // K2B_BK)), grid, -(-items // grid),
+                   k % 4 == 0 and a_ptr % 16 == 0,
+                   n % 4 == 0 and b_ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2b_resident(passes: int, vpu: bool, tile) -> int:
+    """K2b's blocks per SM at ``tile`` as the card's occupancy calculator
+    gives them (one query per kernel and process)."""
+    return _attrs("repro_tcec_matmul_pallas_attrs", passes, int(vpu), tile,
+                  "tcec_matmul_pallas")["blocks_per_sm"]
+
+
 def pallas_launcher(a, b, pol: TcecPolicy, block=None):
-    """Validate a K2b call and allocate its output; returns ``(out, flag,
-    launch)`` as ``launcher`` does (``launch()`` enqueues the kernel,
-    counted; ``flag`` is the guard's device int or ``None``)."""
+    """Validate a K2b call, plan it (``k2b_plan``) and allocate its output;
+    returns ``(out, flag, launch)`` as ``launcher`` does (``launch()``
+    enqueues the kernel, counted; ``flag`` is the guard's device int or
+    ``None``; ``launch.plan`` is the plan)."""
     what = "tcec_matmul_pallas"
     passes = _k2b_passes(pol, what)
+    vpu = pol.backend == "vpu"
     tile = _tile(block, what)
     nb, m, n, k = _cuda_operands(a, b, what)
     a32, b32 = a.float().contiguous(), b.float().contiguous()
     out = _out32(a, nb, m, n)
     flag = torch.zeros(1, dtype=torch.int32, device=a.device) \
         if _needs_guard(pol) else None
+    plan = k2b_plan(m, n, k, nb, tile, _k2b_resident(passes, vpu, tile),
+                    plan_sms(a.device), a32.data_ptr(), b32.data_ptr())
 
     def launch():
         if out.numel() == 0:
@@ -412,11 +469,12 @@ def pallas_launcher(a, b, pol: TcecPolicy, block=None):
         rc = fn(a32.data_ptr(), b32.data_ptr(), out.data_ptr(),
                 None if flag is None else flag.data_ptr(), m, n, k, nb,
                 m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0,
-                m * n, passes, int(pol.backend == "vpu"), tile[0], tile[1],
-                _build.stream_ptr(a.device))
+                m * n, passes, int(vpu), tile[0], tile[1], plan.grid,
+                plan.vec, _build.stream_ptr(a.device))
         _build.check(lib, rc, what)
         LAUNCHES_K2B.hit()
 
+    launch.plan = plan
     return out, flag, launch
 
 
@@ -568,17 +626,20 @@ def kernel_attrs(variant: str, block, policy: TcecPolicy | str) -> dict:
     pol = get_policy(policy)
     tile = _tile(block, "kernel_attrs")
     if variant in ("fused", "vpu"):
-        lib, fn = _entry("repro_tcec_matmul_pallas_attrs",
-                         _k2b_passes(pol, "kernel_attrs"))
-        which = int(variant == "vpu")
-    elif variant in ("staged", "staged_db"):
-        lib, fn = _entry("repro_tcec_staged_attrs",
-                         kernel_passes(pol, "kernel_attrs"))
-        which = int(variant == "staged_db")
-    else:
-        raise ValueError(f"unknown variant {variant!r}")
+        return _attrs("repro_tcec_matmul_pallas_attrs",
+                      _k2b_passes(pol, "kernel_attrs"),
+                      int(variant == "vpu"), tile, "kernel_attrs")
+    if variant in ("staged", "staged_db"):
+        return _attrs("repro_tcec_staged_attrs",
+                      kernel_passes(pol, "kernel_attrs"),
+                      int(variant == "staged_db"), tile, "kernel_attrs")
+    raise ValueError(f"unknown variant {variant!r}")
+
+
+def _attrs(entry: str, passes: int, which: int, tile, what: str) -> dict:
+    lib, fn = _entry(entry, passes)
     vals = [ctypes.c_int() for _ in range(4)]
     rc = fn(which, tile[0], tile[1], *map(ctypes.byref, vals))
-    _build.check(lib, rc, "kernel_attrs")
+    _build.check(lib, rc, what)
     return dict(zip(("smem_bytes", "threads", "regs", "blocks_per_sm"),
                     (v.value for v in vals)))

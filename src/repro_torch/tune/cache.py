@@ -108,6 +108,10 @@ class PlanCache:
 
 _CACHES: Dict[tuple, PlanCache] = {}
 _CACHES_LOCK = threading.Lock()
+#: The plans ``tuner.matmul_plan`` returned in this process, by (mode,
+#: chip, cache directory, key): a second call with the same key scores no
+#: candidate.
+PLANS: Dict[tuple, object] = {}
 
 
 def plan_cache(chip: str, backend: str) -> PlanCache:
@@ -121,9 +125,11 @@ def plan_cache(chip: str, backend: str) -> PlanCache:
 
 
 def clear_plan_cache(disk: bool = False) -> None:
-    """Drop every in-memory cache; ``disk=True`` also deletes cache files."""
+    """Drop every in-memory cache and the process's plans; ``disk=True``
+    also deletes cache files."""
     with _CACHES_LOCK:
         _CACHES.clear()
+        PLANS.clear()
     if disk:
         d = cache_dir()
         if d.is_dir():

@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.policy import TcecPolicy, get_policy
 from repro_torch.core.roofline import active_chip
 from . import model, space
-from .cache import plan_cache
+from .cache import PLANS, cache_dir, plan_cache
 
 __all__ = ["MatmulPlan", "matmul_plan", "mode", "tune_mode", "MODES"]
 
@@ -194,16 +194,23 @@ def matmul_plan(m: int, n: int, k: int, *,
 
     ``variants`` restricts the search space (``("fused",)`` for a caller
     whose kernel is the on-the-fly data flow); ``tcec_matmul_auto``
-    searches all of them.
+    searches all of them.  The plan of a key is kept for the process (until
+    ``clear_plan_cache()``), so only its first call scores candidates.
     """
-    if mode() == "off":
+    tier = mode()
+    if tier == "off":
         return None
     pol = get_policy(policy)
-    cands = space.matmul_candidates(m, n, k, pol, variants=variants)
-    scored = [(model.score_matmul(m, n, k, batch, c, pol, rhs_batched), c)
-              for c in cands]
     key = (f"matmul|{site or '-'}|b{batch}|m{m}|n{n}|k{k}"
            f"|rb{int(rhs_batched)}|{_policy_key(pol)}"
            f"|v{','.join(variants or space.matmul_variants(pol))}")
-    return _search(key, scored, lambda c: _measure_matmul(
+    memo = (tier, active_chip().name, str(cache_dir()), key)
+    if memo in PLANS:
+        return PLANS[memo]
+    cands = space.matmul_candidates(m, n, k, pol, variants=variants)
+    scored = [(model.score_matmul(m, n, k, batch, c, pol, rhs_batched), c)
+              for c in cands]
+    plan = _search(key, scored, lambda c: _measure_matmul(
         m, n, k, batch, rhs_batched, c, pol))
+    PLANS[memo] = plan
+    return plan

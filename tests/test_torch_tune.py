@@ -121,12 +121,13 @@ def test_h100_candidates_are_compiled_tiles_within_the_limit(monkeypatch,
 
 
 def test_h100_footprints_are_the_kernels_shared_memory():
-    """The paper's quantity at (128, 128, 32): fp32 source tiles for K2b,
+    """The paper's quantity at (128, 128, 32): fp32 source tiles for K2b
+    (a ring of two slots, rows padded to pitches of 8 and 4 words mod 32),
     2 * n_words bf16 word tiles for K5 (1.5x at three words, before the
     row padding), two slots of them for K6."""
     fp = roofline.matmul_tile_footprint
-    pad4, pad8 = (128 * 36 + 32 * 132), (128 * 40 + 32 * 136)
-    assert fp(128, 128, 32, 3, "fused") == 4 * pad4 == 35328
+    pad_ab, pad8 = (128 * 40 + 32 * 132), (128 * 40 + 32 * 136)
+    assert fp(128, 128, 32, 3, "fused") == 2 * 4 * pad_ab == 74752
     assert fp(128, 128, 32, 3, "vpu") == fp(128, 128, 32, 3, "fused")
     # n_words A tiles and n_words B tiles of 2-byte words
     assert fp(128, 128, 32, 3, "staged") == 3 * 2 * pad8 == 56832

@@ -40,7 +40,8 @@ It imports nothing of JAX or of the ``repro`` package.  It
      checks that no non-finite guard reads the device from the host on a
      decode tick (the guard-sync counter stays 0), and runs one more tick
      under torch's sync debug mode to list every host sync left and where
-     it comes from (none may come from the model code); then it times the
+     it comes from (none may come from the model code, nor from the engine
+     but its token transfer); then it times the
      first tick, which prefills every prompt, and profiles it (K3's device
      time per prefill);
   3. drives ``tcec_matmul_auto`` under ``REPRO_TUNE=measure`` (fresh plan
@@ -70,9 +71,11 @@ stream), and as its last line
 ``build/chip_smoke.json``.  ``--parity-only`` stops after phase 1 and prints
 no result line; so do ``--k3-only`` (K3 alone: what ``ptxas -v`` says of
 each instantiation, its phase-1 rows and the probes of ``K3_PROBES``),
-``--k2b-only`` (K2b alone: what ``ptxas -v`` says of K2b and K6, and
+``--k2b-only`` (K2b alone: what ``ptxas -v`` says of K2b, K5 and K6, and
 K2b at every shape of ``k2b_shapes()``, bitwise against K5 and K6 at every
-tile, with every kernel's time at every tile) and ``--profile-only``
+tile, with every kernel's time at every tile), ``--k5-only`` (the same for
+K5 at every shape of ``k5_shapes()`` under the bf16 policies; it fails if
+``ptxas -v`` reports a spill in K5) and ``--profile-only``
 (phase 2's profiles alone).  ``--src DIR`` drives the
 ``repro_torch`` package under DIR instead of this checkout's, so an earlier
 commit's tree, unpacked, is measured by the same code.
@@ -515,11 +518,15 @@ def check_k3(dev, rows, shapes=None, policies=("bf16x1", "bf16x3",
 
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name in a mangled name (a length-prefixed
-    identifier ending in ``_kernel``), else the mangled name."""
-    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
-        name = mangled[m.end():m.end() + int(m.group(1))]
-        if name.endswith("_kernel"):
-            return name
+    identifier ending in ``_kernel``), else the mangled name.  The length
+    may follow other digits (an anonymous namespace's hash), so every
+    suffix of a digit run is tried."""
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+        digits = m.group(0)
+        for i in range(len(digits)):
+            name = mangled[m.end():m.end() + int(digits[i:])]
+            if name.endswith("_kernel"):
+                return name
     return mangled
 
 
@@ -778,6 +785,25 @@ def family_bound(a, b, out, pol):
     return bound_ms(n_bytes, flops * pol.passes)
 
 
+def family_calls():
+    """Launch counter -> the call of K2b, K5 and K6 (``fn(a, b, pol,
+    tile)``)."""
+    from repro_torch.kernels import tcec_matmul as tm
+    return {"tcec_matmul_pallas": tm.tcec_matmul_pallas,
+            "tcec_matmul_staged": tm.tcec_matmul_staged,
+            "tcec_matmul_staged_db": tm.tcec_matmul_staged_db}
+
+
+def family_launch(a, b, pol, kname, tile):
+    """The kernel ``kname`` of the family at ``tile`` alone enqueued (no
+    host split of K5/K6, no guard)."""
+    from repro_torch.kernels import tcec_matmul as tm
+    if kname == "tcec_matmul_pallas":
+        return tm.pallas_launcher(a, b, pol, tile)[-1]
+    return tm.staged_launcher(
+        a, b, pol, tile, double_buffer=kname == "tcec_matmul_staged_db")[-1]
+
+
 def check_family(dev, rows):
     """K2b (bf16x1/x3/x6 and fp32_vpu), K5 and K6 (bf16x1/x3/x6) against
     their plain versions (1e-5 max-norm; bf16x1 on a 1/8 grid) and an fp64
@@ -791,14 +817,7 @@ def check_family(dev, rows):
     from repro_torch.kernels import tcec_matmul as tm
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
-    variants = {"tcec_matmul_pallas": tm.pallas_launcher,
-                "tcec_matmul_staged": functools.partial(
-                    tm.staged_launcher, double_buffer=False),
-                "tcec_matmul_staged_db": functools.partial(
-                    tm.staged_launcher, double_buffer=True)}
-    calls = {"tcec_matmul_pallas": tm.tcec_matmul_pallas,
-             "tcec_matmul_staged": tm.tcec_matmul_staged,
-             "tcec_matmul_staged_db": tm.tcec_matmul_staged_db}
+    calls = family_calls()
     heads = {}
     for shape, (sa, sb) in FAMILY_SHAPES.items():
         a = torch.randn(sa, generator=gen, device=dev)
@@ -809,7 +828,7 @@ def check_family(dev, rows):
         for name in ("bf16x1", "bf16x3", "bf16x6", "fp32_vpu"):
             pol = get_policy(name)
             kernels = ["tcec_matmul_pallas"] if pol.backend == "vpu" \
-                else list(variants)
+                else list(calls)
             # Bitwise: every kernel at every tile against K2b's default.
             base = tm.tcec_matmul_pallas(a, b, pol)
             for kname in kernels:
@@ -831,9 +850,8 @@ def check_family(dev, rows):
                 if err_p >= 1e-5:
                     fail(f"{kname} {name} {shape}: kernel vs plain "
                          f"{err_p:.3e} >= 1e-5")
-                out, *_, launch = variants[kname](a, b, pol)
-                ms = time_ms(launch)
-                b_ms, b_by = family_bound(a, b, out, pol)
+                ms = time_ms(family_launch(a, b, pol, kname, None))
+                b_ms, b_by = family_bound(a, b, got, pol)
                 row = dict(kernel=kname, shape=shape, lhs=list(sa),
                            rhs=list(sb), policy=name, tile=list(
                                _build.DEFAULT_TILE), oracle_err=err_o,
@@ -857,7 +875,7 @@ def check_family(dev, rows):
             for name in ("bf16x1", "bf16x3", "bf16x6", "fp32_vpu"):
                 pol = get_policy(name)
                 kernels = ["tcec_matmul_pallas"] if pol.backend == "vpu" \
-                    else list(variants)
+                    else list(calls)
                 plain = tm.tcec_matmul_plain(a_bad, b, pol)
                 for kname in kernels:
                     got = calls[kname](a_bad, b, pol)
@@ -929,7 +947,8 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3,
     """Device time by kernel over ``ticks`` decode ticks of the kernel path
     (torch.profiler), and the device's busy share of the wall time; then
     one tick under torch's sync debug mode lists every host sync left.
-    ``strict``: fail if one comes from the model code (ROADMAP D7)."""
+    ``strict``: fail if one comes from the model code (ROADMAP D7) or from
+    the engine other than its token transfer (D8)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -992,7 +1011,8 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3,
             torch.cuda.set_sync_debug_mode("default")
     where = Counter()
     for w in caught:
-        if "synchroniz" in str(w.message):
+        # torch's own notice that the mode is a prototype is not a sync.
+        if "called a synchronizing" in str(w.message):
             path = Path(w.filename)
             try:
                 path = path.relative_to(ROOT)
@@ -1005,6 +1025,20 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3,
                    if "repro_torch/models/" in k}
     if from_models and strict:
         fail(f"host syncs from the model code on a decode tick: {from_models}")
+    # The engine's one sync is the token transfer (the reference makes it
+    # too); its control copies make none (ROADMAP D8).
+    import inspect
+    host = getattr(PagedServingEngine, "_host_tokens", None)  # earlier trees
+    tokens = range(0)
+    if host is not None:
+        lines, first = inspect.getsourcelines(host)
+        tokens = range(first, first + len(lines))
+    from_engine = {k: n for k, n in where.items()
+                   if "repro_torch/serving/engine.py" in k
+                   and int(k.rsplit(":", 1)[1]) not in tokens}
+    if from_engine and strict:
+        fail(f"host syncs from the engine other than the token transfer on "
+             f"a decode tick: {from_engine}")
     return dict(wall_ms_per_tick=wall, busy_ms_per_tick=busy,
                 idle_share=1 - busy / wall, k2_ms_per_tick=k2,
                 k2_reduce_ms_per_tick=k2_reduce,
@@ -1013,6 +1047,7 @@ def profile_decode(dev, cfg, params, prompts, ticks: int = 3,
                 k4_ms_per_tick=k4, k4_share_of_busy=k4 / busy,
                 k4_share_of_tick=k4 / wall, fixup_ms_per_tick=fixup,
                 sync_debug_tick=dict(where),
+                engine_syncs_besides_tokens=sum(from_engine.values()),
                 top_kernels_ms_per_tick=top)
 
 
@@ -1349,13 +1384,8 @@ VARIANT_KERNEL = {"fused": "tcec_matmul_pallas", "vpu": "tcec_matmul_pallas",
 def kernel_alone_us(a, b, pol, variant, tile):
     """Microseconds of ``variant``'s kernel at ``tile`` with the kernel
     alone enqueued (the host split of K5/K6 and the guard left out)."""
-    from repro_torch.kernels import tcec_matmul as tm
-    if variant in ("fused", "vpu"):
-        _, _, launch = tm.pallas_launcher(a, b, pol, tile)
-    else:
-        _, launch = tm.staged_launcher(a, b, pol, tile,
-                                       double_buffer=variant == "staged_db")
-    return time_ms(launch, reps=10) * 1e3
+    return time_ms(family_launch(a, b, pol, VARIANT_KERNEL[variant], tile),
+                   reps=10) * 1e3
 
 
 def kernel_only_us(a, b, pol):
@@ -1525,6 +1555,9 @@ def check_auto(dev, results):
 #: and a batched lhs against one shared rhs at the paper's largest batch.
 K2B_SHARED = {"b256_s128_shared": ((256, 128, 128), (128, 128))}
 K2B_POLICIES = ("bf16x1", "bf16x3", "bf16x6", "fp32_vpu")
+#: K5 alone (``--k5-only``): the phase-3 sweep, the unaligned family shape
+#: and the shared rhs, under the bf16 policies (K5 stages bf16 words only).
+K5_POLICIES = K2B_POLICIES[:3]
 
 
 def k2b_shapes():
@@ -1537,89 +1570,109 @@ def k2b_shapes():
     return shapes
 
 
-def k2b_checks(a, b, ga, gb, oracle, name, names, kernels, shape):
-    """``check_k2b``'s checks of one (shape, policy); returns the fp64-oracle
-    error and the error against the plain version."""
+def k5_shapes():
+    """name -> (lhs shape, rhs shape) of every ``--k5-only`` row."""
+    shapes = {k: v for k, v in k2b_shapes().items()
+              if k in SWEEP or k in K2B_SHARED}
+    shapes["unaligned"] = FAMILY_SHAPES["unaligned"]
+    return shapes
+
+
+def alone_checks(a, b, ga, gb, oracle, name, names, focus, shape):
+    """``check_alone``'s checks of one (shape, policy); returns the
+    fp64-oracle error and the error against the plain version of
+    ``focus``'s default call."""
     import torch
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
     from repro_torch.kernels import tcec_matmul as tm
     pol = get_policy(name)
+    calls = family_calls()
     torch.cuda.synchronize()
     reset_launch_counts()
+    got = calls[focus](a, b, pol)
+    moved = {k: n for k, n in launch_counts().items()
+             if n and k in calls}
+    if moved != {focus: 1}:
+        fail(f"{focus} {shape} {name}: one call moved the family's "
+             f"counters by {moved}")
     base = tm.tcec_matmul_pallas(a, b, pol)
-    if launch_counts()["tcec_matmul_pallas"] != 1:
-        fail(f"K2b {shape} {name}: its launch counter did not move")
+    if not same_bits(got, base):
+        fail(f"{focus} {name} {shape}: not bitwise equal to K2b")
     for kname in names:
         for tile in _build.TILES:
-            if not same_bits(kernels[kname](a, b, pol, tile), base):
+            if not same_bits(calls[kname](a, b, pol, tile), base):
                 fail(f"{kname} {name} {shape} tile {tile}: not bitwise "
                      f"equal to K2b at the default tile")
     err_o = max_rel(base, oracle)
     if not err_o < ORACLE_TOL[name]:
-        fail(f"K2b {name} {shape}: fp64-oracle error {err_o:.3e}")
+        fail(f"{focus} {name} {shape}: fp64-oracle error {err_o:.3e}")
     pa, pb = (ga, gb) if name == "bf16x1" else (a, b)
-    err_p = max_rel(tm.tcec_matmul_pallas(pa, pb, pol),
+    err_p = max_rel(calls[focus](pa, pb, pol),
                     tm.tcec_matmul_plain(pa, pb, pol))
     if not err_p < 1e-5:
-        fail(f"K2b {name} {shape}: kernel vs plain {err_p:.3e}")
+        fail(f"{focus} {name} {shape}: kernel vs plain {err_p:.3e}")
     return err_o, err_p
 
 
-def check_k2b(dev, rows, probe: bool = False):
-    """K2b alone at every shape of ``k2b_shapes`` under bf16x1/x3/x6 and
-    fp32_vpu: its launch counter moves on a default call; K2b, K5 and K6
-    bitwise equal at every tile of the menu; within 1e-5 (max-norm) of the
-    plain version (bf16x1 on a 1/8 grid) and within the fp64-oracle bound.
-    Times K2b, K5 and K6 with the kernel alone enqueued at every tile, fp32
+def check_alone(dev, rows, focus: str = "tcec_matmul_pallas",
+                probe: bool = False):
+    """One kernel of the batched family alone: K2b (``--k2b-only``) at
+    every shape of ``k2b_shapes`` under bf16x1/x3/x6 and fp32_vpu, or K5
+    (``--k5-only``) at every shape of ``k5_shapes`` under bf16x1/x3/x6.
+    One default call moves its launch counter once (and no other of the
+    family); K2b, K5 and K6 are bitwise equal at every tile of the menu;
+    the focus kernel is within 1e-5 (max-norm) of its plain version
+    (bf16x1 on a 1/8 grid) and within the fp64-oracle bound.  Times K2b,
+    K5 and K6 with the kernel alone enqueued at every tile, fp32
     ``torch.matmul`` and the bound (CUDA events).  With ``probe`` (a copy
     of the kernel changed on purpose to tell the causes of its time apart)
-    it checks nothing and times K2b alone under the bf16 policies."""
+    it checks nothing and times the focus kernel alone under the bf16
+    policies."""
     import torch
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import _build
     from repro_torch.kernels import tcec_matmul as tm
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
-    kernels = {"tcec_matmul_pallas": tm.tcec_matmul_pallas,
-               "tcec_matmul_staged": tm.tcec_matmul_staged,
-               "tcec_matmul_staged_db": tm.tcec_matmul_staged_db}
-    for shape, (sa, sb) in k2b_shapes().items():
+    k5 = focus == "tcec_matmul_staged"
+    shapes = k5_shapes() if k5 else k2b_shapes()
+    policies = K5_POLICIES if k5 or probe else K2B_POLICIES
+    label = "K5" if k5 else "K2b"
+    for shape, (sa, sb) in shapes.items():
         a = torch.randn(sa, generator=gen, device=dev)
         b = torch.randn(sb, generator=gen, device=dev)
         ga, gb = (on_grid(x, gen) for x in (a, b))
         oracle = torch.matmul(a.double(), b.double())
         lib_ms = time_ms(lambda: torch.matmul(a, b))
         flops = 2.0 * oracle.numel() * a.shape[-1]
-        for name in K2B_POLICIES[:3] if probe else K2B_POLICIES:
+        for name in policies:
             pol = get_policy(name)
-            names = ["tcec_matmul_pallas"] if pol.backend == "vpu" or probe \
-                else list(kernels)
-            base = tm.tcec_matmul_pallas(a, b, pol)
+            if probe:
+                names = [focus]
+            elif pol.backend == "vpu":
+                names = ["tcec_matmul_pallas"]
+            else:
+                names = list(family_calls())
             err_o = err_p = None
             if not probe:
-                err_o, err_p = k2b_checks(a, b, ga, gb, oracle, name, names,
-                                          kernels, shape)
+                err_o, err_p = alone_checks(a, b, ga, gb, oracle, name, names,
+                                            focus, shape)
             times = {}
             for kname in names:
                 for tile in _build.TILES:
-                    if kname == "tcec_matmul_pallas":
-                        _, _, launch = tm.pallas_launcher(a, b, pol, tile)
-                    else:
-                        _, launch = tm.staged_launcher(
-                            a, b, pol, tile,
-                            double_buffer=kname == "tcec_matmul_staged_db")
-                    times.setdefault(kname, {})[str(tile[:2])] = \
-                        time_ms(launch, reps=10) * 1e3
+                    times.setdefault(kname, {})[str(tile[:2])] = time_ms(
+                        family_launch(a, b, pol, kname, tile), reps=10) * 1e3
             best = {k: min(v.values()) for k, v in times.items()}
             default = {}
-            if not probe and name == SWEEP_POLICY and shape in SWEEP:
+            if not probe and not k5 and name == SWEEP_POLICY \
+                    and shape in SWEEP:
                 default = default_call_cost(
                     a, b, pol,
                     lambda v, t: times[VARIANT_KERNEL[v]][str(t[:2])])
-            b_ms, b_by = family_bound(a, b, base, pol)
+            b_ms, b_by = family_bound(a, b, oracle, pol)
             row = dict(shape=shape, lhs=list(sa), rhs=list(sb), policy=name,
-                       oracle_err=err_o, rel_err_vs_plain=err_p,
+                       focus=focus, oracle_err=err_o, rel_err_vs_plain=err_p,
                        kernel_us=times, best_us=best,
                        emulated_tflops={k: flops / t / 1e6
                                         for k, t in best.items()},
@@ -1632,10 +1685,10 @@ def check_k2b(dev, rows, probe: bool = False):
                 for k, v in times.items())
             checked = "unchecked (probe)" if probe else \
                 f"oracle {err_o:.2e} plain {err_p:.2e} bitwise"
-            print(f"K2b {shape:16s} {name:8s}: {checked} | us by tile "
-                  f"{[t[:2] for t in _build.TILES]}: {per} | best K2b "
-                  f"{best['tcec_matmul_pallas']:.1f} us = "
-                  f"{row['emulated_tflops']['tcec_matmul_pallas']:.2f} TF/s | "
+            print(f"{label} {shape:16s} {name:8s}: {checked} | us by tile "
+                  f"{[t[:2] for t in _build.TILES]}: {per} | best {label} "
+                  f"{best[focus]:.1f} us = "
+                  f"{row['emulated_tflops'][focus]:.2f} TF/s | "
                   f"fp32 matmul {lib_ms * 1e3:.1f} | bound {b_ms * 1e3:.2f} "
                   f"({b_by})", flush=True)
             if default:
@@ -1893,10 +1946,15 @@ def main(argv=None) -> int:
                     help="build K2b, K5/K6 and the fix-up alone, print what "
                          "ptxas says of K2b and K6, and run K2b alone at the "
                          "shapes of k2b_shapes(); no result line")
+    ap.add_argument("--k5-only", action="store_true",
+                    help="build K2b, K5/K6 and the fix-up alone, print what "
+                         "ptxas says of K5 and K6, and run K5 alone at the "
+                         "shapes of k5_shapes(); no result line")
     ap.add_argument("--probe", action="store_true",
-                    help="with --k2b-only: time K2b alone under the bf16 "
-                         "policies and check nothing (for a copy of the "
-                         "kernel changed on purpose, driven through --src)")
+                    help="with --k2b-only or --k5-only: time that kernel "
+                         "alone under the bf16 policies and check nothing "
+                         "(for a copy of the kernel changed on purpose, "
+                         "driven through --src)")
     ap.add_argument("--profile-only", action="store_true",
                     help="build, then profile the serving path alone: three "
                          "decode ticks with the sync-debug tick (reported, "
@@ -1931,9 +1989,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     if args.k3_only:
         _build.LIBS = {"flash_attention": _build.LIBS["flash_attention"]}
-    if args.k2b_only:
-        _build.LIBS = {k: _build.LIBS[k] for k in (
-            "tcec_matmul_k2b", "tcec_staged", "nonfinite_fixup")}
+    if args.k2b_only or args.k5_only:
+        keep = ("tcec_staged",) if args.k5_only and args.probe else (
+            "tcec_matmul_k2b", "tcec_staged", "nonfinite_fixup")
+        _build.LIBS = {k: _build.LIBS[k] for k in keep}
     t_start = t0 = time.perf_counter()
     build = _build.build_all()
     print(f"built kernels in {time.perf_counter() - t0:.1f} s -> {build}",
@@ -1963,22 +2022,35 @@ def main(argv=None) -> int:
         pre = profile_prefill(dev, cfg, params, prompts)
         summary = dict(
             decode={k: dec[k] for k in ("wall_ms_per_tick", "busy_ms_per_tick",
-                                        "idle_share", "sync_debug_tick")},
+                                        "idle_share", "sync_debug_tick",
+                                        "engine_syncs_besides_tokens")},
             prefill={k: v for k, v in pre.items() if k != "top_kernels_ms"})
         print(json.dumps(summary), flush=True)
         print("profile-only: passed", file=sys.stderr)
         return 0
-    if args.k2b_only:
-        print("ptxas -v of K2b and of K5/K6:", flush=True)
-        results["k2b_build"] = ptxas_report(build, "libtcec_matmul_k2b_p*.log")
+    if args.k2b_only or args.k5_only:
+        which = "k5" if args.k5_only else "k2b"
+        if which == "k2b":
+            print("ptxas -v of K2b:", flush=True)
+            results["k2b_build"] = ptxas_report(
+                build, "libtcec_matmul_k2b_p*.log")
+        print("ptxas -v of K5 and K6:", flush=True)
         results["staged_build"] = ptxas_report(build, "libtcec_staged_p*.log")
+        spills = [f"{lib}: {_kernel_name(k['kernel'])}"
+                  f"{_template_args(k['kernel'])}"
+                  for lib, ks in results["staged_build"].items() for k in ks
+                  if "k5" in _kernel_name(k["kernel"]) and
+                  k["spill_stores"] + k["spill_loads"]]
+        if spills and not args.probe:
+            fail(f"K5 spills: {spills}")
         rows = []
-        check_k2b(dev, rows, args.probe)
-        results["k2b"] = rows
-        (out_dir / "chip_smoke_k2b.json").write_text(
+        check_alone(dev, rows, "tcec_matmul_staged" if args.k5_only
+                    else "tcec_matmul_pallas", args.probe)
+        results[which] = rows
+        (out_dir / f"chip_smoke_{which}.json").write_text(
             json.dumps(results, indent=1))
-        print(f"k2b-only: passed in {time.perf_counter() - t_start:.1f} s",
-              file=sys.stderr)
+        print(f"{which}-only: passed in "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr)
         return 0
     if args.k3_only:
         rows = []

@@ -16,23 +16,55 @@
 // the same tile menu (tcec_tile.cuh).  The scheduled passes run through K1's
 // mma_passes in the same order as K2b, so K2b, K5 and K6 give the same bits.
 //
-// What bounds it on an H100: at bf16x6 and large shapes, the six tensor-core
-// passes; at the small batched shapes, the words' bytes (the host writes
-// 2 * n_words bytes per element per operand and the kernel reads them back)
-// and the shared-memory round trip.  K5 loads each tile synchronously; K6
-// issues the 16-byte cp.async.cg copies of tile k+1 into the other slot
-// before it computes tile k, so the copy overlaps the passes.  TMA and
-// mbarriers are later work.
-//
 // Layout: A words (n_words, batch, M, ldk), B words (n_words, [batch,] K,
 // ldn), bf16, with ldk = K and ldn = N rounded up to 8 elements (the host
 // zero-fills the pad), so every row and every 16-byte chunk is 16-byte
 // aligned.  A chunk is either inside its row or, past M / K / ldk / ldn,
-// zero-filled.  Grid: (n tiles, m tiles, batch); fp32 out.
-#include "tcec_core.cuh"
+// zero-filled.  Grid: (n tiles, m tiles, batch); one warp per 32 x 32
+// outputs (tile::threads); fp32 out.
+//
+// K5 on an H100.  What bounds it: by the roofline, the words' bytes at the
+// paper's small batched shapes (the host writes 2 * n_words bytes per
+// element per operand and the kernel reads them back) and the passes on
+// the tensor cores at the large ones; as measured, the wait for each k
+// tile's copies, which one buffer cannot overlap with its own passes, and
+// the ALU work around each mma.sync (K1's four FADDs).  What the design
+// does about it while it stays the baseline (one slot, every word tile
+// staged, words made on the host):
+//
+// * Staging: every 16-byte chunk of the 2 * n_words word tiles of a k step
+//   is issued at once as cp.async.cg into the one slot (a fixed count per
+//   thread), then one commit and one wait: the copies fly together.  No
+//   copy of the next k tile is issued before this one's passes end (that
+//   is K6).
+// * Fragments by ldmatrix, the instruction wmma::load_matrix_sync becomes
+//   on sm_80 and later: per k16 step a warp loads A's words with one
+//   ldmatrix.x4 per m16 tile and word and B's with one ldmatrix.x4.trans
+//   per pair of n8 tiles and word (12 loads for 48 mma.sync at bf16x6).
+//   The rows' 16-byte pad (WPAD) puts the eight row addresses of every
+//   ldmatrix phase in distinct banks at every tile (A's pitch 80 bytes;
+//   B's 80, 144 and 272: 20 and 4 words apart mod 32).
+// * Occupancy is the only latency hiding one buffer has: the copies of one
+//   block fly while another's passes run.  The word loop of the staging is
+//   not unrolled, so a thread keeps one address per chunk of a word tile,
+//   and the launch bounds name the block size alone: 92-139 registers and
+//   no spill at every tile and pass count; 3 blocks of 4 warps per SM at
+//   64 x 64 under bf16x6, 1-2 blocks at the 128-row tiles.  A register cap
+//   asking for more blocks per SM made ptxas spill and gained nothing.
+// * Warps whose outputs lie wholly outside the matrix skip their passes;
+//   outputs are stored as pairs where N is even.
+//
+// K6: each k tile's chunks are issued as cp.async.cg into the other slot
+// before tile k is computed, so the copy overlaps the passes; fragments are
+// loaded as 32-bit A pairs and 16-bit B halves.
+#include "tcec_frag.cuh"
 #include "tcec_tile.cuh"
 
 namespace {
+
+using frag::cp_async16;
+using frag::cp_async_commit;
+using frag::cp_async_wait;
 
 constexpr int BK = tile::BK;
 // Row padding of the staged word tiles (bf16 elements, 16 bytes): rows stay
@@ -53,29 +85,160 @@ struct Slot {
   static constexpr int BYTES = ELEMS * 2;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;  // src-size 0: zero-fill, nothing is read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
 
-template <bool ASYNC>
-__device__ __forceinline__ void copy16(uint16_t* dst, const uint16_t* src, bool ok) {
-  if constexpr (ASYNC) {
-    cp_async16(dst, src, ok);
-  } else {
-    *reinterpret_cast<uint4*>(dst) =
-        ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
+template <int NW, int BM, int BN>
+struct K5Geo {
+  using S = Slot<NW, BM, BN>;
+  static constexpr int THREADS = tile::threads(BM, BN);
+  static constexpr int A_CH = BM * BK / 8;  // 16-byte chunks per A word tile
+  static constexpr int B_CH = BK * BN / 8;
+  static_assert(A_CH % THREADS == 0 && B_CH % THREADS == 0, "whole copies per thread");
+  static_assert((LDA * 2) % 16 == 0 && (S::LDB * 2) % 16 == 0,
+                "16-byte rows for cp.async and ldmatrix");
+};
+
+// Issue the copies of every word tile of k tile k0 into the slot, 16 bytes
+// each, all in flight together; the caller commits and waits.
+template <int NW, int BM, int BN>
+__device__ __forceinline__ void k5_stage(uint16_t* slot, const uint16_t* Aw,
+                                         const uint16_t* Bw, long long wsA, long long wsB,
+                                         int m0, int n0, int k0, int M, int K, int ldk,
+                                         int ldn, int tid) {
+  using G = K5Geo<NW, BM, BN>;
+  using S = typename G::S;
+  // The word loop is not unrolled, so a thread keeps one address per chunk
+  // of a word tile rather than one per chunk of the slot.
+#pragma unroll 1
+  for (int w = 0; w < NW; ++w) {
+#pragma unroll
+    for (int u = 0; u < G::A_CH / G::THREADS; ++u) {
+      const int c = tid + u * G::THREADS;
+      const int r = c / (BK / 8), c8 = (c % (BK / 8)) * 8;
+      const int gr = m0 + r, gc = k0 + c8;
+      const bool ok = gr < M && gc < ldk;
+      cp_async16(slot + w * S::A_ELEMS + r * LDA + c8,
+                 ok ? Aw + w * wsA + (long long)gr * ldk + gc : Aw, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < G::B_CH / G::THREADS; ++u) {
+      const int c = tid + u * G::THREADS;
+      const int r = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
+      const int gr = k0 + r, gc = n0 + c8;
+      const bool ok = gr < K && gc < ldn;
+      cp_async16(slot + NW * S::A_ELEMS + w * S::B_ELEMS + r * S::LDB + c8,
+                 ok ? Bw + w * wsB + (long long)gr * ldn + gc : Bw, ok);
+    }
   }
 }
 
-// Stage the word tiles of k tile k0 into `slot`, 16 bytes per copy.
-template <int NW, int BM, int BN, bool ASYNC>
+// The scheduled passes of the staged k tile on this warp's 32 x 32 outputs.
+// Lane L addresses row L % 8 of 8 x 8 matrix L / 8: for A, matrices (rows
+// 0-7 | 8-15) x (k 0-7 | 8-15) of an m16 tile give a0..a3; for B,
+// (k 0-7 | 8-15) x (columns of n8 tile 2j | 2j + 1), transposed, give b0, b1
+// of both n8 tiles.
+template <int PASSES, int BM, int BN>
+__device__ __forceinline__ void k5_passes(const uint16_t* slot, float (&acc)[2][4][4],
+                                          const tile::Lane& l) {
+  constexpr int NW = tcec::n_words(PASSES);
+  using S = Slot<NW, BM, BN>;
+  const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
+  const uint16_t* a = slot + (l.wm + (q & 1) * 8 + r8) * LDA + (q >> 1) * 8;
+  const uint16_t* b =
+      slot + NW * S::A_ELEMS + ((q & 1) * 8 + r8) * S::LDB + l.wn + (q >> 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t fa[2][NW][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        frag::ldsm_x4(fa[mt][w], a + w * S::A_ELEMS + mt * 16 * LDA + kk);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t fb0[NW][2], fb1[NW][2];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        uint32_t r[4];
+        frag::ldsm_x4_trans(r, b + w * S::B_ELEMS + kk * S::LDB + 16 * j);
+        fb0[w][0] = r[0], fb0[w][1] = r[1], fb1[w][0] = r[2], fb1[w][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        tcec::mma_passes<PASSES>(acc[mt][2 * j], fa[mt], fb0);
+        tcec::mma_passes<PASSES>(acc[mt][2 * j + 1], fa[mt], fb1);
+      }
+    }
+  }
+}
+
+template <int PASSES, int BM, int BN>
+__global__ void __launch_bounds__(tile::threads(BM, BN))
+tcec_staged_k5_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restrict__ Bw,
+                      float* __restrict__ C, int M, int N, int K, int ldk, int ldn,
+                      long long wsA, long long wsB, long long sAb, long long sBb,
+                      long long sCb) {
+  constexpr int NW = tcec::n_words(PASSES);
+  extern __shared__ __align__(16) uint16_t smem[];
+
+  const int tid = threadIdx.x;
+  const tile::Lane l = tile::lane_of<BN>(tid);
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const long long bi = blockIdx.z;
+  const uint16_t* Ab = Aw + bi * sAb;
+  const uint16_t* Bb = Bw + bi * sBb;
+  const bool live = m0 + l.wm < M && n0 + l.wn < N;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (K + BK - 1) / BK;
+  for (int kt = 0; kt < nk; ++kt) {
+    k5_stage<NW, BM, BN>(smem, Ab, Bb, wsA, wsB, m0, n0, kt * BK, M, K, ldk, ldn, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (live) k5_passes<PASSES, BM, BN>(smem, acc, l);
+    __syncthreads();  // the next k tile's copies overwrite the slot
+  }
+
+  if (!live) return;
+  float* Cb = C + bi * sCb;
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + tile::acc_row(l, mt, 2 * h);
+        const int c = n0 + tile::acc_col(l, nt, 0);
+        if (r >= M || c >= N) continue;
+        float* out = Cb + (long long)r * N + c;
+        if (pairs) {
+          *reinterpret_cast<float2*>(out) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        } else {
+          out[0] = acc[mt][nt][2 * h];
+          if (c + 1 < N) out[1] = acc[mt][nt][2 * h + 1];
+        }
+      }
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+
+// Issue the copies of the word tiles of k tile k0 into `slot`, 16 bytes per
+// copy.
+template <int NW, int BM, int BN>
 __device__ __forceinline__ void load_slot(uint16_t* slot, const uint16_t* Aw,
                                           const uint16_t* Bw, long long wsA, long long wsB,
                                           int m0, int n0, int k0, int M, int K, int ldk,
@@ -89,8 +252,8 @@ __device__ __forceinline__ void load_slot(uint16_t* slot, const uint16_t* Aw,
     const int r = c / (BK / 8), c8 = (c % (BK / 8)) * 8;
     const int gr = m0 + r, gc = k0 + c8;
     const bool ok = gr < M && gc < ldk;
-    copy16<ASYNC>(slot + w * S::A_ELEMS + r * LDA + c8,
-                  ok ? Aw + w * wsA + (long long)gr * ldk + gc : Aw, ok);
+    cp_async16(slot + w * S::A_ELEMS + r * LDA + c8,
+               ok ? Aw + w * wsA + (long long)gr * ldk + gc : Aw, ok);
   }
   uint16_t* bslot = slot + NW * S::A_ELEMS;
   for (int i = tid; i < NW * B_CH; i += THREADS) {
@@ -98,8 +261,8 @@ __device__ __forceinline__ void load_slot(uint16_t* slot, const uint16_t* Aw,
     const int r = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
     const int gr = k0 + r, gc = n0 + c8;
     const bool ok = gr < K && gc < ldn;
-    copy16<ASYNC>(bslot + w * S::B_ELEMS + r * S::LDB + c8,
-                  ok ? Bw + w * wsB + (long long)gr * ldn + gc : Bw, ok);
+    cp_async16(bslot + w * S::B_ELEMS + r * S::LDB + c8,
+               ok ? Bw + w * wsB + (long long)gr * ldn + gc : Bw, ok);
   }
 }
 
@@ -150,11 +313,12 @@ __device__ __forceinline__ void compute_slot(const uint16_t* slot, float (&acc)[
   }
 }
 
-template <int PASSES, int BM, int BN, bool DB>
+template <int PASSES, int BM, int BN>
 __global__ void __launch_bounds__(tile::threads(BM, BN))
-tcec_staged_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restrict__ Bw,
-                   float* __restrict__ C, int M, int N, int K, int ldk, int ldn,
-                   long long wsA, long long wsB, long long sAb, long long sBb, long long sCb) {
+tcec_staged_db_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restrict__ Bw,
+                      float* __restrict__ C, int M, int N, int K, int ldk, int ldn,
+                      long long wsA, long long wsB, long long sAb, long long sBb,
+                      long long sCb) {
   constexpr int NW = tcec::n_words(PASSES);
   using S = Slot<NW, BM, BN>;
   extern __shared__ __align__(16) uint16_t smem[];
@@ -176,33 +340,23 @@ tcec_staged_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restrict__
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   const int nk = (K + BK - 1) / BK;
-  if constexpr (!DB) {
-    for (int kt = 0; kt < nk; ++kt) {
-      load_slot<NW, BM, BN, false>(smem, Ab, Bb, wsA, wsB, m0, n0, kt * BK, M, K, ldk, ldn,
-                                   tid);
-      __syncthreads();
-      compute_slot<PASSES, BM, BN>(smem, acc, l);
-      __syncthreads();
-    }
-  } else {
-    if (nk > 0) {
-      load_slot<NW, BM, BN, true>(smem, Ab, Bb, wsA, wsB, m0, n0, 0, M, K, ldk, ldn, tid);
+  if (nk > 0) {
+    load_slot<NW, BM, BN>(smem, Ab, Bb, wsA, wsB, m0, n0, 0, M, K, ldk, ldn, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      // Prefetch tile k+1 into the other slot, then wait for tile k only.
+      load_slot<NW, BM, BN>(smem + ((kt + 1) & 1) * S::ELEMS, Ab, Bb, wsA, wsB, m0, n0,
+                            (kt + 1) * BK, M, K, ldk, ldn, tid);
       cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        // Prefetch tile k+1 into the other slot, then wait for tile k only.
-        load_slot<NW, BM, BN, true>(smem + ((kt + 1) & 1) * S::ELEMS, Ab, Bb, wsA, wsB, m0,
-                                    n0, (kt + 1) * BK, M, K, ldk, ldn, tid);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      compute_slot<PASSES, BM, BN>(smem + (kt & 1) * S::ELEMS, acc, l);
-      __syncthreads();  // the next prefetch overwrites this slot
-    }
+    __syncthreads();
+    compute_slot<PASSES, BM, BN>(smem + (kt & 1) * S::ELEMS, acc, l);
+    __syncthreads();  // the next prefetch overwrites this slot
   }
 
 #pragma unroll
@@ -217,40 +371,54 @@ tcec_staged_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restrict__
       }
 }
 
-// The kernel of (BM, BN, DB) and its dynamic shared memory, with the opt-in
-// above 48 KB made (once per kernel).
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// The kernel of (BM, BN, DB): K5 (DB false) or K6, its dynamic shared memory
+// (one slot, or two) and threads, with the opt-in above 48 KB made (once per
+// kernel).
 template <int BM, int BN, bool DB>
-cudaError_t prepare(int* dyn_smem) {
-  constexpr int NW = tcec::n_words(REPRO_PASSES);
-  constexpr int bytes = (DB ? 2 : 1) * Slot<NW, BM, BN>::BYTES;
-  static const cudaError_t err = cudaFuncSetAttribute(
-      tcec_staged_kernel<REPRO_PASSES, BM, BN, DB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  *dyn_smem = bytes;
-  return err;
-}
+struct Kernel {
+  static constexpr int NW = tcec::n_words(REPRO_PASSES);
+  static constexpr int SMEM = (DB ? 2 : 1) * Slot<NW, BM, BN>::BYTES;
+  static constexpr int THREADS = tile::threads(BM, BN);
+  static auto fn() {
+    if constexpr (DB)
+      return tcec_staged_db_kernel<REPRO_PASSES, BM, BN>;
+    else
+      return tcec_staged_k5_kernel<REPRO_PASSES, BM, BN>;
+  }
+  static cudaError_t prepare() {
+    static const cudaError_t err =
+        cudaFuncSetAttribute(fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    return err;
+  }
+};
 
 template <int BM, int BN, bool DB>
 cudaError_t launch(const uint16_t* Aw, const uint16_t* Bw, float* C, int M, int N, int K,
                    int ldk, int ldn, int batch, long long wsA, long long wsB, long long sAb,
                    long long sBb, long long sCb, cudaStream_t stream) {
-  int dyn = 0;
-  cudaError_t err = prepare<BM, BN, DB>(&dyn);
+  using Kn = Kernel<BM, BN, DB>;
+  cudaError_t err = Kn::prepare();
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  tcec_staged_kernel<REPRO_PASSES, BM, BN, DB><<<grid, tile::threads(BM, BN), dyn, stream>>>(
-      Aw, Bw, C, M, N, K, ldk, ldn, wsA, wsB, sAb, sBb, sCb);
+  const auto kernel = Kn::fn();
+  kernel<<<grid, Kn::THREADS, Kn::SMEM, stream>>>(Aw, Bw, C, M, N, K, ldk, ldn, wsA, wsB, sAb,
+                                                  sBb, sCb);
   return cudaGetLastError();
 }
 
 template <int BM, int BN, bool DB>
-cudaError_t attrs(int* smem_bytes, int* threads, int* regs, int* blocks_per_sm) {
-  int dyn = 0;
-  cudaError_t err = prepare<BM, BN, DB>(&dyn);
+cudaError_t attrs(int* smem_bytes, int* threads, int* regs, int* blocks_per_sm,
+                  int* local_bytes) {
+  using Kn = Kernel<BM, BN, DB>;
+  cudaError_t err = Kn::prepare();
   if (err != cudaSuccess) return err;
-  *threads = tile::threads(BM, BN);
-  return tile::attrs(tcec_staged_kernel<REPRO_PASSES, BM, BN, DB>, *threads, dyn, smem_bytes,
-                     regs, blocks_per_sm);
+  *threads = Kn::THREADS;
+  return tile::attrs(Kn::fn(), *threads, Kn::SMEM, smem_bytes, regs, blocks_per_sm,
+                     local_bytes);
 }
 
 }  // namespace
@@ -282,13 +450,17 @@ int repro_tcec_staged(const void* Aw, const void* Bw, float* C, int M, int N, in
 }
 
 // Shared memory per block (static + the dynamic size the launch asks for),
-// registers per thread and resident blocks per SM of K5/K6 at (bm, bn).
+// threads, registers per thread, resident blocks per SM and local memory per
+// thread (spills and stack) of K5/K6 at (bm, bn).
 int repro_tcec_staged_attrs(int double_buffer, int bm, int bn, int* smem_bytes, int* threads,
-                            int* regs, int* blocks_per_sm) {
+                            int* regs, int* blocks_per_sm, int* local_bytes) {
   cudaError_t err = tile::dispatch(bm, bn, [&](auto shape) {
     using T = decltype(shape);
-    return double_buffer ? attrs<T::BM, T::BN, true>(smem_bytes, threads, regs, blocks_per_sm)
-                         : attrs<T::BM, T::BN, false>(smem_bytes, threads, regs, blocks_per_sm);
+    return double_buffer
+               ? attrs<T::BM, T::BN, true>(smem_bytes, threads, regs, blocks_per_sm,
+                                           local_bytes)
+               : attrs<T::BM, T::BN, false>(smem_bytes, threads, regs, blocks_per_sm,
+                                            local_bytes);
   });
   return static_cast<int>(err);
 }

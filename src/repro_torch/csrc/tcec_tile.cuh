@@ -58,15 +58,17 @@ __device__ __forceinline__ int acc_col(const Lane& l, int nt, int e) {
 }
 
 // Function attributes of a kernel and how many of its blocks fit on one SM
-// at once, for `dyn_smem` bytes of dynamic shared memory per block.
+// at once, for `dyn_smem` bytes of dynamic shared memory per block; with
+// `local_bytes`, also its local memory per thread (spills and stack).
 template <class K>
 cudaError_t attrs(K kernel, int threads, int dyn_smem, int* smem_bytes, int* regs,
-                  int* blocks_per_sm) {
+                  int* blocks_per_sm, int* local_bytes = nullptr) {
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return err;
   *smem_bytes = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
   *regs = a.numRegs;
+  if (local_bytes != nullptr) *local_bytes = static_cast<int>(a.localSizeBytes);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads,
                                                        dyn_smem);
 }

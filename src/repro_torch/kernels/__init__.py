@@ -8,7 +8,7 @@ each with its plain PyTorch version and a launch counter.
     out, over a tile menu, with its vpu (plain fp32) arm;
   * K5 ``tcec_matmul.tcec_matmul_staged`` and K6
     ``tcec_matmul.tcec_matmul_staged_db`` — the staged-word baseline,
-    synchronous and double-buffered; ``tcec_matmul.tcec_matmul_auto``
+    single- and double-buffered; ``tcec_matmul.tcec_matmul_auto``
     dispatches to K2b, K5 or K6 through ``repro_torch.tune``;
   * K3 ``flash_attention.flash_attention`` — prefill attention (on
     ``flash_attention.k3_plan``: where the grid is short of the card, kv

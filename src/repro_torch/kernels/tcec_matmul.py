@@ -22,8 +22,10 @@ other.
   * ``tcec_matmul_staged`` (K5, ``csrc/tcec_staged.cu``) and
     ``tcec_matmul_staged_db`` (K6) — the WMMA-API baseline: the host splits
     both operands into bf16 word arrays and the kernel stages every word
-    tile in shared memory (K6 through a two-slot ``cp.async`` pipeline).
-    bf16 words only.  K2b, K5 and K6 give the same bits at the same tile.
+    tile in shared memory (K5 in one slot, each k step's copies all in
+    flight before its passes; K6 through a two-slot ``cp.async``
+    pipeline).  bf16 words only.  K2b, K5 and K6 give the same bits at the
+    same tile.
   * ``tcec_matmul_auto`` — ``repro_torch.tune.matmul_plan`` picks (tile,
     variant) and the call goes to K2b, K5 or K6.
 
@@ -234,8 +236,11 @@ _ENTRIES = {
         _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL, _CLL,
         _CLL, _CI, _CI, _CI, _CI, _VP]),
     "repro_tcec_staged_attrs": ("tcec_staged", [
-        _CI, _CI, _CI, _PI, _PI, _PI, _PI]),
+        _CI, _CI, _CI, _PI, _PI, _PI, _PI, _PI]),
 }
+#: What an attrs entry point reports, in its order.
+_ATTRS = ("smem_bytes", "threads", "regs", "blocks_per_sm")
+_ATTRS_STAGED = _ATTRS + ("local_bytes",)
 
 
 def _entry(name: str, passes: int):
@@ -622,7 +627,9 @@ def kernel_attrs(variant: str, block, policy: TcecPolicy | str) -> dict:
     """What the card gives the kernel of ``variant`` at tile ``block`` under
     ``policy``'s pass count: the shared memory a block asks for (static +
     dynamic bytes), its threads, registers per thread, and how many of its
-    blocks fit on one SM at once (the CUDA occupancy calculator)."""
+    blocks fit on one SM at once (the CUDA occupancy calculator); for K5
+    and K6 also ``local_bytes``, local memory per thread (spills and
+    stack)."""
     pol = get_policy(policy)
     tile = _tile(block, "kernel_attrs")
     if variant in ("fused", "vpu"):
@@ -638,8 +645,8 @@ def kernel_attrs(variant: str, block, policy: TcecPolicy | str) -> dict:
 
 def _attrs(entry: str, passes: int, which: int, tile, what: str) -> dict:
     lib, fn = _entry(entry, passes)
-    vals = [ctypes.c_int() for _ in range(4)]
+    keys = _ATTRS_STAGED if entry == "repro_tcec_staged_attrs" else _ATTRS
+    vals = [ctypes.c_int() for _ in keys]
     rc = fn(which, tile[0], tile[1], *map(ctypes.byref, vals))
     _build.check(lib, rc, what)
-    return dict(zip(("smem_bytes", "threads", "regs", "blocks_per_sm"),
-                    (v.value for v in vals)))
+    return dict(zip(keys, (v.value for v in vals)))

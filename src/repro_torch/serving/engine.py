@@ -104,8 +104,28 @@ class PagedServingEngine:
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
 
     def _dev(self, x, dtype=torch.int32) -> torch.Tensor:
-        """Host array -> control tensor on the engine's device."""
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """Host array -> control tensor on the engine's device, with no host
+        sync (the reference's ``_dev`` is an asynchronous ``jnp.asarray``).
+
+        On a card the values are first copied into a page-locked block of
+        torch's caching host allocator, and that block to the card with a
+        non-blocking copy.  The copy records an event on the block, and the
+        allocator hands the block out again only once that event has
+        completed, so every call stages into its own block and the host may
+        rewrite ``x`` (the block table, ``seq_lens``, the last tokens) at
+        once.  On the CPU nothing is pinned: the plain ``as_tensor``.
+        """
+        if self.device.type != "cuda":
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
+        host = torch.as_tensor(np.asarray(x), dtype=dtype).pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _host_tokens(tokens: torch.Tensor) -> np.ndarray:
+        """The greedy tokens, device -> host: the one host sync of a tick,
+        which the reference makes too (its ``np.asarray`` of the argmax)."""
+        return tokens.cpu().numpy()
 
     # -- submission ---------------------------------------------------------
 
@@ -149,7 +169,7 @@ class PagedServingEngine:
             self.stats["prefills"] += 1
             self._finite = self._finite & torch.isfinite(logits).all()
             self.seq_lens[chunk.slot] = chunk.end
-            tok = int(torch.argmax(logits[0]))
+            tok = int(self._host_tokens(torch.argmax(logits[0])))
             sched.record_prefill(chunk.rid, chunk.end, first_token=tok)
             self._last_tok[chunk.slot] = tok
 
@@ -160,7 +180,7 @@ class PagedServingEngine:
                 self._dev(self.seq_lens), self.cfg)
             self.stats["decode_ticks"] += 1
             self._finite = self._finite & torch.isfinite(logits).all()
-            next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
+            next_tok = self._host_tokens(torch.argmax(logits, dim=-1))
             for rid, slot in plan.decode:
                 self.seq_lens[slot] += 1
                 tok = int(next_tok[slot])

@@ -75,7 +75,8 @@ each instantiation, its phase-1 rows and the probes of ``K3_PROBES``),
 K2b at every shape of ``k2b_shapes()``, bitwise against K5 and K6 at every
 tile, with every kernel's time at every tile), ``--k5-only`` (the same for
 K5 at every shape of ``k5_shapes()`` under the bf16 policies; it fails if
-``ptxas -v`` reports a spill in K5) and ``--profile-only``
+``ptxas -v`` reports a spill in K5), ``--k6-only`` (the same with K6 as the
+focus; it fails if ``ptxas -v`` reports a spill in K6) and ``--profile-only``
 (phase 2's profiles alone).  ``--src DIR`` drives the
 ``repro_torch`` package under DIR instead of this checkout's, so an earlier
 commit's tree, unpacked, is measured by the same code.
@@ -1555,9 +1556,16 @@ def check_auto(dev, results):
 #: and a batched lhs against one shared rhs at the paper's largest batch.
 K2B_SHARED = {"b256_s128_shared": ((256, 128, 128), (128, 128))}
 K2B_POLICIES = ("bf16x1", "bf16x3", "bf16x6", "fp32_vpu")
-#: K5 alone (``--k5-only``): the phase-3 sweep, the unaligned family shape
-#: and the shared rhs, under the bf16 policies (K5 stages bf16 words only).
+#: K5 or K6 alone (``--k5-only``, ``--k6-only``): the phase-3 sweep, the
+#: unaligned family shape and the shared rhs, under the bf16 policies (K5 and
+#: K6 stage bf16 words only).
 K5_POLICIES = K2B_POLICIES[:3]
+#: The focus of each ``--k*-only`` run: its launch counter, its label and its
+#: kernel's name in ``ptxas -v``'s output (None: K2b, whose spills are
+#: reported, not checked).
+ALONE = {"k2b": ("tcec_matmul_pallas", "K2b", None),
+         "k5": ("tcec_matmul_staged", "K5", "tcec_staged_k5_kernel"),
+         "k6": ("tcec_matmul_staged_db", "K6", "tcec_staged_db_kernel")}
 
 
 def k2b_shapes():
@@ -1576,6 +1584,27 @@ def k5_shapes():
               if k in SWEEP or k in K2B_SHARED}
     shapes["unaligned"] = FAMILY_SHAPES["unaligned"]
     return shapes
+
+
+def staged_attrs():
+    """K5's and K6's shared memory, registers, resident blocks per SM and
+    local memory per thread at every tile under bf16x1/x3/x6, as the card
+    reports them."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tcec_matmul as tm
+    rows = []
+    print("K5 / K6 per tile (smem B, regs, blocks/SM, local B):", flush=True)
+    for name in K5_POLICIES:
+        for tile in _build.TILES:
+            got = {v: tm.kernel_attrs(v, tile, name)
+                   for v in ("staged", "staged_db")}
+            rows += [dict(policy=name, variant=v, tile=list(tile), **a)
+                     for v, a in got.items()]
+            print(f"  {name:7s} {str(tile[:2]):10s} " + " | ".join(
+                f"{lab} {a['smem_bytes']} {a['regs']} {a['blocks_per_sm']} "
+                f"{a['local_bytes']}" for lab, a in
+                zip(("K5", "K6"), got.values())), flush=True)
+    return rows
 
 
 def alone_checks(a, b, ga, gb, oracle, name, names, focus, shape):
@@ -1615,11 +1644,11 @@ def alone_checks(a, b, ga, gb, oracle, name, names, focus, shape):
     return err_o, err_p
 
 
-def check_alone(dev, rows, focus: str = "tcec_matmul_pallas",
-                probe: bool = False):
+def check_alone(dev, rows, which: str = "k2b", probe: bool = False):
     """One kernel of the batched family alone: K2b (``--k2b-only``) at
     every shape of ``k2b_shapes`` under bf16x1/x3/x6 and fp32_vpu, or K5
-    (``--k5-only``) at every shape of ``k5_shapes`` under bf16x1/x3/x6.
+    (``--k5-only``) or K6 (``--k6-only``) at every shape of ``k5_shapes``
+    under bf16x1/x3/x6.
     One default call moves its launch counter once (and no other of the
     family); K2b, K5 and K6 are bitwise equal at every tile of the menu;
     the focus kernel is within 1e-5 (max-norm) of its plain version
@@ -1635,10 +1664,10 @@ def check_alone(dev, rows, focus: str = "tcec_matmul_pallas",
     from repro_torch.kernels import tcec_matmul as tm
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
-    k5 = focus == "tcec_matmul_staged"
-    shapes = k5_shapes() if k5 else k2b_shapes()
-    policies = K5_POLICIES if k5 or probe else K2B_POLICIES
-    label = "K5" if k5 else "K2b"
+    focus, label, _ = ALONE[which]
+    staged = which != "k2b"
+    shapes = k5_shapes() if staged else k2b_shapes()
+    policies = K5_POLICIES if staged or probe else K2B_POLICIES
     for shape, (sa, sb) in shapes.items():
         a = torch.randn(sa, generator=gen, device=dev)
         b = torch.randn(sb, generator=gen, device=dev)
@@ -1665,7 +1694,7 @@ def check_alone(dev, rows, focus: str = "tcec_matmul_pallas",
                         family_launch(a, b, pol, kname, tile), reps=10) * 1e3
             best = {k: min(v.values()) for k, v in times.items()}
             default = {}
-            if not probe and not k5 and name == SWEEP_POLICY \
+            if not probe and not staged and name == SWEEP_POLICY \
                     and shape in SWEEP:
                 default = default_call_cost(
                     a, b, pol,
@@ -1950,11 +1979,15 @@ def main(argv=None) -> int:
                     help="build K2b, K5/K6 and the fix-up alone, print what "
                          "ptxas says of K5 and K6, and run K5 alone at the "
                          "shapes of k5_shapes(); no result line")
+    ap.add_argument("--k6-only", action="store_true",
+                    help="build K2b, K5/K6 and the fix-up alone, print what "
+                         "ptxas says of K5 and K6, and run K6 alone at the "
+                         "shapes of k5_shapes(); no result line")
     ap.add_argument("--probe", action="store_true",
-                    help="with --k2b-only or --k5-only: time that kernel "
-                         "alone under the bf16 policies and check nothing "
-                         "(for a copy of the kernel changed on purpose, "
-                         "driven through --src)")
+                    help="with --k2b-only, --k5-only or --k6-only: time that "
+                         "kernel alone under the bf16 policies and check "
+                         "nothing (for a copy of the kernel changed on "
+                         "purpose, driven through --src)")
     ap.add_argument("--profile-only", action="store_true",
                     help="build, then profile the serving path alone: three "
                          "decode ticks with the sync-debug tick (reported, "
@@ -1989,8 +2022,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     if args.k3_only:
         _build.LIBS = {"flash_attention": _build.LIBS["flash_attention"]}
-    if args.k2b_only or args.k5_only:
-        keep = ("tcec_staged",) if args.k5_only and args.probe else (
+    which = "k2b" if args.k2b_only else "k5" if args.k5_only else \
+        "k6" if args.k6_only else None
+    if which:
+        keep = ("tcec_staged",) if which != "k2b" and args.probe else (
             "tcec_matmul_k2b", "tcec_staged", "nonfinite_fixup")
         _build.LIBS = {k: _build.LIBS[k] for k in keep}
     t_start = t0 = time.perf_counter()
@@ -2028,8 +2063,8 @@ def main(argv=None) -> int:
         print(json.dumps(summary), flush=True)
         print("profile-only: passed", file=sys.stderr)
         return 0
-    if args.k2b_only or args.k5_only:
-        which = "k5" if args.k5_only else "k2b"
+    if which:
+        _, label, kernel_name = ALONE[which]
         if which == "k2b":
             print("ptxas -v of K2b:", flush=True)
             results["k2b_build"] = ptxas_report(
@@ -2039,13 +2074,14 @@ def main(argv=None) -> int:
         spills = [f"{lib}: {_kernel_name(k['kernel'])}"
                   f"{_template_args(k['kernel'])}"
                   for lib, ks in results["staged_build"].items() for k in ks
-                  if "k5" in _kernel_name(k["kernel"]) and
+                  if _kernel_name(k["kernel"]) == kernel_name and
                   k["spill_stores"] + k["spill_loads"]]
         if spills and not args.probe:
-            fail(f"K5 spills: {spills}")
+            fail(f"{label} spills: {spills}")
+        if which != "k2b":
+            results["staged_attrs"] = staged_attrs()
         rows = []
-        check_alone(dev, rows, "tcec_matmul_staged" if args.k5_only
-                    else "tcec_matmul_pallas", args.probe)
+        check_alone(dev, rows, which, args.probe)
         results[which] = rows
         (out_dir / f"chip_smoke_{which}.json").write_text(
             json.dumps(results, indent=1))

@@ -54,9 +54,18 @@
 // * Warps whose outputs lie wholly outside the matrix skip their passes;
 //   outputs are stored as pairs where N is even.
 //
-// K6: each k tile's chunks are issued as cp.async.cg into the other slot
-// before tile k is computed, so the copy overlaps the passes; fragments are
-// loaded as 32-bit A pairs and 16-bit B halves.
+// K6 is K5 with two slots, the reference's software pipeline: the copies of
+// k tile k+1 are issued into the other slot before the passes of tile k, and
+// the wait (cp.async.wait_group 1) leaves them in flight, so within one
+// block the copies overlap the passes that K5 can only overlap across
+// blocks.  Everything else is K5's, by the same device functions: staging,
+// ldmatrix fragments, passes, the skip of dead warps, paired stores and
+// launch bounds of the block size alone.  Its footprint is two slots
+// (58,368 B at 64 x 64 under bf16x6, so three blocks per SM, as many as
+// K5's registers allow there); 95-151 registers and no spill at every tile
+// and pass count.  With the copy wait hidden, what bounds it on an H100 is
+// K5's instruction mix around each mma.sync (K1's four FADDs): below K5 at
+// the large shapes, above fp32 cuBLAS at 4096^3.
 #include "tcec_frag.cuh"
 #include "tcec_tile.cuh"
 
@@ -83,39 +92,29 @@ struct Slot {
   static constexpr int B_ELEMS = BK * LDB;
   static constexpr int ELEMS = NW * (A_ELEMS + B_ELEMS);
   static constexpr int BYTES = ELEMS * 2;
-};
-
-// ---------------------------------------------------------------------------
-// K5
-// ---------------------------------------------------------------------------
-
-template <int NW, int BM, int BN>
-struct K5Geo {
-  using S = Slot<NW, BM, BN>;
   static constexpr int THREADS = tile::threads(BM, BN);
   static constexpr int A_CH = BM * BK / 8;  // 16-byte chunks per A word tile
   static constexpr int B_CH = BK * BN / 8;
   static_assert(A_CH % THREADS == 0 && B_CH % THREADS == 0, "whole copies per thread");
-  static_assert((LDA * 2) % 16 == 0 && (S::LDB * 2) % 16 == 0,
+  static_assert((LDA * 2) % 16 == 0 && (LDB * 2) % 16 == 0,
                 "16-byte rows for cp.async and ldmatrix");
 };
 
 // Issue the copies of every word tile of k tile k0 into the slot, 16 bytes
 // each, all in flight together; the caller commits and waits.
 template <int NW, int BM, int BN>
-__device__ __forceinline__ void k5_stage(uint16_t* slot, const uint16_t* Aw,
-                                         const uint16_t* Bw, long long wsA, long long wsB,
-                                         int m0, int n0, int k0, int M, int K, int ldk,
-                                         int ldn, int tid) {
-  using G = K5Geo<NW, BM, BN>;
-  using S = typename G::S;
+__device__ __forceinline__ void stage_slot(uint16_t* slot, const uint16_t* Aw,
+                                           const uint16_t* Bw, long long wsA, long long wsB,
+                                           int m0, int n0, int k0, int M, int K, int ldk,
+                                           int ldn, int tid) {
+  using S = Slot<NW, BM, BN>;
   // The word loop is not unrolled, so a thread keeps one address per chunk
   // of a word tile rather than one per chunk of the slot.
 #pragma unroll 1
   for (int w = 0; w < NW; ++w) {
 #pragma unroll
-    for (int u = 0; u < G::A_CH / G::THREADS; ++u) {
-      const int c = tid + u * G::THREADS;
+    for (int u = 0; u < S::A_CH / S::THREADS; ++u) {
+      const int c = tid + u * S::THREADS;
       const int r = c / (BK / 8), c8 = (c % (BK / 8)) * 8;
       const int gr = m0 + r, gc = k0 + c8;
       const bool ok = gr < M && gc < ldk;
@@ -123,8 +122,8 @@ __device__ __forceinline__ void k5_stage(uint16_t* slot, const uint16_t* Aw,
                  ok ? Aw + w * wsA + (long long)gr * ldk + gc : Aw, ok);
     }
 #pragma unroll
-    for (int u = 0; u < G::B_CH / G::THREADS; ++u) {
-      const int c = tid + u * G::THREADS;
+    for (int u = 0; u < S::B_CH / S::THREADS; ++u) {
+      const int c = tid + u * S::THREADS;
       const int r = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
       const int gr = k0 + r, gc = n0 + c8;
       const bool ok = gr < K && gc < ldn;
@@ -140,8 +139,8 @@ __device__ __forceinline__ void k5_stage(uint16_t* slot, const uint16_t* Aw,
 // (k 0-7 | 8-15) x (columns of n8 tile 2j | 2j + 1), transposed, give b0, b1
 // of both n8 tiles.
 template <int PASSES, int BM, int BN>
-__device__ __forceinline__ void k5_passes(const uint16_t* slot, float (&acc)[2][4][4],
-                                          const tile::Lane& l) {
+__device__ __forceinline__ void slot_passes(const uint16_t* slot, float (&acc)[2][4][4],
+                                            const tile::Lane& l) {
   constexpr int NW = tcec::n_words(PASSES);
   using S = Slot<NW, BM, BN>;
   const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
@@ -174,13 +173,15 @@ __device__ __forceinline__ void k5_passes(const uint16_t* slot, float (&acc)[2][
   }
 }
 
-template <int PASSES, int BM, int BN>
-__global__ void __launch_bounds__(tile::threads(BM, BN))
-tcec_staged_k5_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restrict__ Bw,
-                      float* __restrict__ C, int M, int N, int K, int ldk, int ldn,
-                      long long wsA, long long wsB, long long sAb, long long sBb,
-                      long long sCb) {
+// K5 (SLOTS 1) or K6 (SLOTS 2): the same body but for the k loop.
+template <int PASSES, int BM, int BN, int SLOTS>
+__device__ __forceinline__ void staged_body(const uint16_t* __restrict__ Aw,
+                                            const uint16_t* __restrict__ Bw,
+                                            float* __restrict__ C, int M, int N, int K,
+                                            int ldk, int ldn, long long wsA, long long wsB,
+                                            long long sAb, long long sBb, long long sCb) {
   constexpr int NW = tcec::n_words(PASSES);
+  using S = Slot<NW, BM, BN>;
   extern __shared__ __align__(16) uint16_t smem[];
 
   const int tid = threadIdx.x;
@@ -201,13 +202,34 @@ tcec_staged_k5_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restric
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   const int nk = (K + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    k5_stage<NW, BM, BN>(smem, Ab, Bb, wsA, wsB, m0, n0, kt * BK, M, K, ldk, ldn, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (live) k5_passes<PASSES, BM, BN>(smem, acc, l);
-    __syncthreads();  // the next k tile's copies overwrite the slot
+  if constexpr (SLOTS == 1) {
+    for (int kt = 0; kt < nk; ++kt) {
+      stage_slot<NW, BM, BN>(smem, Ab, Bb, wsA, wsB, m0, n0, kt * BK, M, K, ldk, ldn, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (live) slot_passes<PASSES, BM, BN>(smem, acc, l);
+      __syncthreads();  // the next k tile's copies overwrite the slot
+    }
+  } else {
+    if (nk > 0) {
+      stage_slot<NW, BM, BN>(smem, Ab, Bb, wsA, wsB, m0, n0, 0, M, K, ldk, ldn, tid);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt + 1 < nk) {
+        // Tile k+1 into the other slot, then wait for tile k only.
+        stage_slot<NW, BM, BN>(smem + ((kt + 1) & 1) * S::ELEMS, Ab, Bb, wsA, wsB, m0, n0,
+                               (kt + 1) * BK, M, K, ldk, ldn, tid);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (live) slot_passes<PASSES, BM, BN>(smem + (kt & 1) * S::ELEMS, acc, l);
+      __syncthreads();  // the next prefetch overwrites this slot
+    }
   }
 
   if (!live) return;
@@ -232,85 +254,13 @@ tcec_staged_k5_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restric
       }
 }
 
-// ---------------------------------------------------------------------------
-// K6
-// ---------------------------------------------------------------------------
-
-// Issue the copies of the word tiles of k tile k0 into `slot`, 16 bytes per
-// copy.
-template <int NW, int BM, int BN>
-__device__ __forceinline__ void load_slot(uint16_t* slot, const uint16_t* Aw,
-                                          const uint16_t* Bw, long long wsA, long long wsB,
-                                          int m0, int n0, int k0, int M, int K, int ldk,
-                                          int ldn, int tid) {
-  using S = Slot<NW, BM, BN>;
-  constexpr int THREADS = tile::threads(BM, BN);
-  constexpr int A_CH = BM * BK / 8;  // 16-byte chunks per A word tile
-  constexpr int B_CH = BK * BN / 8;
-  for (int i = tid; i < NW * A_CH; i += THREADS) {
-    const int w = i / A_CH, c = i % A_CH;
-    const int r = c / (BK / 8), c8 = (c % (BK / 8)) * 8;
-    const int gr = m0 + r, gc = k0 + c8;
-    const bool ok = gr < M && gc < ldk;
-    cp_async16(slot + w * S::A_ELEMS + r * LDA + c8,
-               ok ? Aw + w * wsA + (long long)gr * ldk + gc : Aw, ok);
-  }
-  uint16_t* bslot = slot + NW * S::A_ELEMS;
-  for (int i = tid; i < NW * B_CH; i += THREADS) {
-    const int w = i / B_CH, c = i % B_CH;
-    const int r = c / (BN / 8), c8 = (c % (BN / 8)) * 8;
-    const int gr = k0 + r, gc = n0 + c8;
-    const bool ok = gr < K && gc < ldn;
-    cp_async16(bslot + w * S::B_ELEMS + r * S::LDB + c8,
-               ok ? Bw + w * wsB + (long long)gr * ldn + gc : Bw, ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// The scheduled passes of one staged k tile: fragments loaded from the word
-// tiles in shared memory (the same registers K1's split writes in K2b).
 template <int PASSES, int BM, int BN>
-__device__ __forceinline__ void compute_slot(const uint16_t* slot, float (&acc)[2][4][4],
-                                             const tile::Lane& l) {
-  constexpr int NW = tcec::n_words(PASSES);
-  using S = Slot<NW, BM, BN>;
-  const uint16_t* bslot = slot + NW * S::A_ELEMS;
-  const int g = l.g, t = l.t;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t fa[2][NW][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = l.wm + mt * 16 + g;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const uint16_t* a = slot + w * S::A_ELEMS;
-        fa[mt][w][0] = ld_pair(a + r * LDA + kk + 2 * t);
-        fa[mt][w][1] = ld_pair(a + (r + 8) * LDA + kk + 2 * t);
-        fa[mt][w][2] = ld_pair(a + r * LDA + kk + 2 * t + 8);
-        fa[mt][w][3] = ld_pair(a + (r + 8) * LDA + kk + 2 * t + 8);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = l.wn + nt * 8 + g;
-      uint32_t fb[NW][2];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const uint16_t* b = bslot + w * S::B_ELEMS + c;
-        fb[w][0] = pack16(b[(kk + 2 * t) * S::LDB], b[(kk + 2 * t + 1) * S::LDB]);
-        fb[w][1] = pack16(b[(kk + 2 * t + 8) * S::LDB], b[(kk + 2 * t + 9) * S::LDB]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) tcec::mma_passes<PASSES>(acc[mt][nt], fa[mt], fb);
-    }
-  }
+__global__ void __launch_bounds__(tile::threads(BM, BN))
+tcec_staged_k5_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restrict__ Bw,
+                      float* __restrict__ C, int M, int N, int K, int ldk, int ldn,
+                      long long wsA, long long wsB, long long sAb, long long sBb,
+                      long long sCb) {
+  staged_body<PASSES, BM, BN, 1>(Aw, Bw, C, M, N, K, ldk, ldn, wsA, wsB, sAb, sBb, sCb);
 }
 
 template <int PASSES, int BM, int BN>
@@ -319,56 +269,7 @@ tcec_staged_db_kernel(const uint16_t* __restrict__ Aw, const uint16_t* __restric
                       float* __restrict__ C, int M, int N, int K, int ldk, int ldn,
                       long long wsA, long long wsB, long long sAb, long long sBb,
                       long long sCb) {
-  constexpr int NW = tcec::n_words(PASSES);
-  using S = Slot<NW, BM, BN>;
-  extern __shared__ __align__(16) uint16_t smem[];
-
-  const int tid = threadIdx.x;
-  const tile::Lane l = tile::lane_of<BN>(tid);
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const long long bi = blockIdx.z;
-  const uint16_t* Ab = Aw + bi * sAb;
-  const uint16_t* Bb = Bw + bi * sBb;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = (K + BK - 1) / BK;
-  if (nk > 0) {
-    load_slot<NW, BM, BN>(smem, Ab, Bb, wsA, wsB, m0, n0, 0, M, K, ldk, ldn, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      // Prefetch tile k+1 into the other slot, then wait for tile k only.
-      load_slot<NW, BM, BN>(smem + ((kt + 1) & 1) * S::ELEMS, Ab, Bb, wsA, wsB, m0, n0,
-                            (kt + 1) * BK, M, K, ldk, ldn, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    compute_slot<PASSES, BM, BN>(smem + (kt & 1) * S::ELEMS, acc, l);
-    __syncthreads();  // the next prefetch overwrites this slot
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + tile::acc_row(l, mt, e);
-        const int c = n0 + tile::acc_col(l, nt, e);
-        if (r < M && c < N) C[bi * sCb + (long long)r * N + c] = acc[mt][nt][e];
-      }
+  staged_body<PASSES, BM, BN, 2>(Aw, Bw, C, M, N, K, ldk, ldn, wsA, wsB, sAb, sBb, sCb);
 }
 
 // ---------------------------------------------------------------------------

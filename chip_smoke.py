@@ -55,12 +55,13 @@ It imports nothing of JAX or of the ``repro`` package.  It
   4. drives the structured ops ``repro_torch.kernels.ops.householder``,
      ``givens`` and ``cumsum`` (K7-K9: H, G and the triangular ones made in
      registers) at the paper's benchmark shapes and at one shape per op
-     that fills the card (the scan also at block_n 8192, which its tile
-     stages in k-slices), checks them against their plain versions and the
-     JAX tests' properties, holds each kernel against its plain version at
-     the JAX tests' shapes and a ragged one, checks the bf16-overflow
-     ±inf/NaN pattern, and times kernel, plain version and the staged
-     library flow (``torch.bmm`` of the materialized matrix; for the scan
+     that fills the card (the scan also at block_n 8192), checks them
+     against their plain versions and the JAX tests' properties, holds each
+     kernel against its plain version at the JAX tests' shapes and a ragged
+     one, checks the bf16-overflow ±inf/NaN pattern, and times kernel,
+     plain version and the staged library flow (``torch.bmm`` of the
+     materialized matrix in bf16, and in fp32 with TF32 off, the one call
+     that computes the kernel's function; for the scan fp32
      ``torch.cumsum``).
 
 Any failed check exits non-zero.  It prints the card's name and power limit,
@@ -76,8 +77,12 @@ K2b at every shape of ``k2b_shapes()``, bitwise against K5 and K6 at every
 tile, with every kernel's time at every tile), ``--k5-only`` (the same for
 K5 at every shape of ``k5_shapes()`` under the bf16 policies; it fails if
 ``ptxas -v`` reports a spill in K5), ``--k6-only`` (the same with K6 as the
-focus; it fails if ``ptxas -v`` reports a spill in K6) and ``--profile-only``
-(phase 2's profiles alone).  ``--src DIR`` drives the
+focus; it fails if ``ptxas -v`` reports a spill in K6), ``--k9-only``
+(K9 alone: the structured library built alone, what ``ptxas -v`` says of it
+(it fails on a spill in K9), K9 at every shape of ``K9_SHAPES`` held
+against its plain version with a digest of each result, timed beside fp32
+``torch.cumsum``, a device copy of x and its bound) and ``--profile-only`` (phase 2's profiles
+alone).  ``--src DIR`` drives the
 ``repro_torch`` package under DIR instead of this checkout's, so an earlier
 commit's tree, unpacked, is measured by the same code.
 """
@@ -1763,13 +1768,14 @@ def close(got, ref, tol: float) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def same_nonfinite(got, ref) -> bool:
-    """Same NaN positions, same ±inf values, finite parts within 1e-5."""
+def same_nonfinite(got, ref, tol: float = 1e-5) -> bool:
+    """Same NaN positions, same ±inf values, finite parts within ``tol``
+    (``close``)."""
     import torch
     inf, fin = torch.isinf(ref), torch.isfinite(ref)
     return (torch.equal(torch.isnan(got), torch.isnan(ref))
             and torch.equal(got[inf], ref[inf])
-            and close(got[fin], ref[fin], 1e-5) < float("inf"))
+            and close(got[fin], ref[fin], tol) < float("inf"))
 
 
 def structured_inputs(dev, gen):
@@ -1800,7 +1806,8 @@ def check_structured(dev, results):
     against its plain version at the JAX tests' shapes and a ragged one
     (K7/K8 1e-5, K9 1e-4), check the bf16-overflow ±inf/NaN pattern, and
     time kernel, plain version, the staged library flow (materialized H or
-    G in bf16 through ``torch.bmm``) or ``torch.cumsum``, beside the bound.
+    G through ``torch.bmm``, in bf16 and in fp32) or ``torch.cumsum``,
+    beside the bound.
     Returns (launch counts of the path run, headline rows)."""
     import torch
     from repro_torch.core import fragment
@@ -1915,6 +1922,7 @@ def check_structured(dev, results):
             _, launch = st.householder_launcher(v, a)
             plain = functools.partial(st.householder_plain, v, a)
             make = (lambda: fragment.householder(v).to(bf))
+            make32 = (lambda: fragment.householder(v))
             n_bytes = 4 * (v.numel() + 2 * a.numel())
             flops = 2.0 * b * m * m * k
         elif kname == "givens_apply":
@@ -1923,6 +1931,7 @@ def check_structured(dev, results):
             _, launch = st.givens_launcher(th, a, gi, gj)
             plain = functools.partial(st.givens_plain, th, a, gi, gj)
             make = (lambda: st.givens_matrices(th, m, gi, gj).to(bf))
+            make32 = (lambda: st.givens_matrices(th, m, gi, gj))
             n_bytes = 4 * (th.numel() + 2 * a.numel())
             flops = 2.0 * b * m * m * k
         else:
@@ -1931,28 +1940,39 @@ def check_structured(dev, results):
             _, launch = st.scan_launcher(x, bn)
             plain = functools.partial(st.scan_cumsum_plain, x, bn)
             make = None
-            n_bytes = 4 * 2 * x.numel()
-            flops = 2.0 * r * n * bn
+            n_bytes, flops, xu_ops = k9_work(r, n, bn)
         ms = time_ms(launch)
         plain_ms = time_ms(plain, queued=False)
+        fp32_ms = None
         if make is None:
             lib = "torch.cumsum fp32"
             lib_ms = time_ms(lambda: torch.cumsum(x, dim=1))
             make_ms = None
+            b_ms, b_by = bound_ms(n_bytes, flops, FP32_FLOPS)
         else:
+            # bf16 beside fp32 (TF32 off, set in main): only the fp32 call
+            # computes the kernel's function, fp32 A in and fp32 out.
             lib = "torch.bmm bf16 (materialized)"
             mat, a_bf = make(), a.to(bf)
             lib_ms = time_ms(lambda: torch.bmm(mat, a_bf))
+            mat32 = make32()
+            fp32_ms = time_ms(lambda: torch.bmm(mat32, a))
             make_ms = time_ms(make)
-        b_ms, b_by = bound_ms(n_bytes, flops)
+            b_ms, b_by = bound_ms(n_bytes, flops)
         row.update(kernel=kname, dims=list(shape), ms=ms, plain_ms=plain_ms,
                    library=lib, library_ms=lib_ms,
-                   materialize_ms=make_ms, bound_ms=b_ms, bound_by=b_by,
-                   launches=counts[kname])
+                   library_fp32_ms=fp32_ms, materialize_ms=make_ms,
+                   bound_ms=b_ms, bound_by=b_by, launches=counts[kname])
+        if make is None:
+            row["xu_operations"] = xu_ops
         print(f"{kname:17s} {s:9s} {str(shape):24s}: {ms:.4f} ms (plain "
               f"{plain_ms:.4f}, {lib} {lib_ms:.4f}"
               + ("" if make_ms is None else f" + materialize {make_ms:.4f}")
+              + ("" if fp32_ms is None else
+                 f", torch.bmm fp32 (TF32 off) {fp32_ms:.4f}")
               + f", bound {b_ms:.4f} {b_by}"
+              + ("" if make is not None else
+                 f"; the reference's x·U would be {xu_ops:.3e} operations")
               + ("; launch cost sets this shape's time"
                  if s.startswith("bench") else "") + f") | {row['check']} {row['check_value']:.3e}",
               flush=True)
@@ -1961,6 +1981,103 @@ def check_structured(dev, results):
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
     results["structured"] = dict(rows=rows, launches=got_counts)
     return counts, heads
+
+
+def k9_work(rows: int, n: int, block_n: int):
+    """(bytes, operations, x·U operations) of a cumsum of (rows, n): x read
+    once and the result written once, one add per element (what the
+    function needs, whatever computes it); and, as a figure of its own, the
+    2·rows·n·block_n operations of the reference's x·U product."""
+    return 4.0 * 2 * rows * n, float(rows) * n, 2.0 * rows * n * block_n
+
+
+#: K9 alone (``--k9-only``): name -> (rows, n, block_n, non-finite values
+#: as (row, column, value)).  The path's shapes, the parity shapes (the
+#: ragged (24, 96, 48) among them) and block_n 8192 with non-finite values
+#: (K9's slots are 128 columns wide): an inf at column 200, whose zero
+#: triangle covers the first two slots, one in a later slot of the same
+#: row, a bf16-overflowing finite value, a NaN, a -inf at a block's last
+#: column; and the same shape finite, to time the non-finite arm.
+K9_NONFINITE = [(1, 200, float("inf")), (1, 3000, float("inf")),
+                (2, 8192 + 5000, -3.4e38), (5, 100, float("nan")),
+                (6, 16383, float("-inf")), (9, 4095, float("inf"))]
+K9_SHAPES = {**{name: (*shape, None) for name, shape in CS_PATH.items()},
+             **{f"parity_{r}x{n}_bn{bn}": (r, n, bn, None)
+                for r, n, bn in CS_PARITY},
+             "nonfinite_bn8192": (64, 16384, 8192, K9_NONFINITE),
+             "finite_bn8192": (64, 16384, 8192, None)}
+
+
+def digest(out) -> str:
+    """sha256 (first 16 hex digits) of an fp32 result's bits with -0 taken
+    as +0 and every NaN as one NaN."""
+    import hashlib
+    import torch
+    y = torch.where(out == 0, torch.zeros_like(out), out)
+    y = torch.where(torch.isnan(y), torch.full_like(y, float("nan")), y)
+    return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def check_k9(dev, rows, probe: bool = False):
+    """K9 alone at every shape of ``K9_SHAPES`` through ``scan_launcher``
+    (which every tree of the port has): one launch moves its counter once;
+    the result is within 1e-4 of the plain version (numpy's allclose at
+    rtol = atol = 1e-4) with the plain version's ±inf/NaN pattern, or
+    exactly its pattern with non-finite inputs; prints each result's
+    digest; times the kernel alone (CUDA events), fp32 ``torch.cumsum``, a
+    device copy of x (the same bytes moved) and the plain version beside
+    the bound.  With ``probe`` it checks nothing
+    and times the path's shapes and the non-finite pair only."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import structured as st
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    for name, (r, n, bn, bad) in K9_SHAPES.items():
+        x = torch.randn(r, n, generator=gen, device=dev)
+        for i, j, v in bad or ():
+            x[i, j] = v
+        timed = name in CS_PATH or name.endswith("_bn8192")
+        if probe and not timed:
+            continue
+        out, launch = st.scan_launcher(x, bn)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        launch()
+        torch.cuda.synchronize()
+        moved = {k: c for k, c in launch_counts().items() if c}
+        plain = st.scan_cumsum_plain(x, bn)
+        if bad:
+            err = 0.0 if same_nonfinite(out, plain, 1e-4) else float("inf")
+        else:
+            err = close(out, plain, 1e-4)
+        row = dict(shape=name, dims=[r, n, bn], nonfinite=bool(bad),
+                   max_abs_err=err, digest=digest(out), launches=moved)
+        if not probe and (moved != {"scan_cumsum": 1} or err == float("inf")
+                          or (not bad and not bool(torch.isfinite(out).all()))
+                          or (bad and bool(torch.isfinite(plain).all()))):
+            fail(f"K9 {name} {(r, n, bn)}: launches {moved}, kernel vs plain "
+                 f"{err:.3e}")
+        text = f"K9 {name:28s} {str((r, n, bn)):20s}: " + (
+            "unchecked (probe)" if probe else
+            "plain's ±inf/NaN pattern" if bad else f"max abs {err:.3e}") \
+            + f" | digest {row['digest']}"
+        if timed:
+            n_bytes, flops, xu_ops = k9_work(r, n, bn)
+            b_ms, b_by = bound_ms(n_bytes, flops, FP32_FLOPS)
+            row.update(ms=time_ms(launch),
+                       cumsum_ms=time_ms(lambda: torch.cumsum(x, dim=1)),
+                       copy_ms=time_ms(lambda: out.copy_(x)),
+                       plain_ms=time_ms(functools.partial(
+                           st.scan_cumsum_plain, x, bn), queued=False),
+                       bound_ms=b_ms, bound_by=b_by, xu_operations=xu_ops)
+            text += (f" | {row['ms']:.4f} ms, fp32 torch.cumsum "
+                     f"{row['cumsum_ms']:.4f}, a copy of x "
+                     f"{row['copy_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                     f"bound {b_ms:.4f} ({b_by}, {b_ms / row['ms']:.0%}); "
+                     f"the reference's x·U {xu_ops:.3e} operations")
+        rows.append(row)
+        print(text, flush=True)
 
 
 def main(argv=None) -> int:
@@ -1983,11 +2100,17 @@ def main(argv=None) -> int:
                     help="build K2b, K5/K6 and the fix-up alone, print what "
                          "ptxas says of K5 and K6, and run K6 alone at the "
                          "shapes of k5_shapes(); no result line")
+    ap.add_argument("--k9-only", action="store_true",
+                    help="build the structured library alone, print what "
+                         "ptxas says of K9 (fails on a spill) and run K9 "
+                         "alone at the shapes of K9_SHAPES: checks, digests, "
+                         "times; no result line")
     ap.add_argument("--probe", action="store_true",
-                    help="with --k2b-only, --k5-only or --k6-only: time that "
-                         "kernel alone under the bf16 policies and check "
-                         "nothing (for a copy of the kernel changed on "
-                         "purpose, driven through --src)")
+                    help="with --k2b-only, --k5-only, --k6-only or "
+                         "--k9-only: time that kernel alone (K2b/K5/K6 under "
+                         "the bf16 policies) and check nothing (for a copy "
+                         "of the kernel changed on purpose, driven through "
+                         "--src)")
     ap.add_argument("--profile-only", action="store_true",
                     help="build, then profile the serving path alone: three "
                          "decode ticks with the sync-debug tick (reported, "
@@ -2022,6 +2145,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     if args.k3_only:
         _build.LIBS = {"flash_attention": _build.LIBS["flash_attention"]}
+    if args.k9_only:
+        _build.LIBS = {"structured": _build.LIBS["structured"]}
     which = "k2b" if args.k2b_only else "k5" if args.k5_only else \
         "k6" if args.k6_only else None
     if which:
@@ -2087,6 +2212,23 @@ def main(argv=None) -> int:
             json.dumps(results, indent=1))
         print(f"{which}-only: passed in "
               f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr)
+        return 0
+    if args.k9_only:
+        print("ptxas -v of K7-K9:", flush=True)
+        results["k9_build"] = ptxas_report(build, "libstructured_p*.log")
+        spills = [f"{_kernel_name(k['kernel'])}{_template_args(k['kernel'])}"
+                  for ks in results["k9_build"].values() for k in ks
+                  if _kernel_name(k["kernel"]) == "scan_kernel"
+                  and k["spill_stores"] + k["spill_loads"]]
+        if spills and not args.probe:
+            fail(f"K9 spills: {spills}")
+        rows = []
+        check_k9(dev, rows, args.probe)
+        results["k9"] = rows
+        (out_dir / "chip_smoke_k9.json").write_text(
+            json.dumps(results, indent=1))
+        print(f"k9-only: passed in {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr)
         return 0
     if args.k3_only:
         rows = []
@@ -2178,7 +2320,9 @@ def main(argv=None) -> int:
             enqueues=enqueues.get(name, "one kernel"),
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"],
+            # K7/K8: the fp32 torch.bmm, the call that computes their function
+            library_ms=r.get("library_fp32_ms") or r["library_ms"]))
     print(f"chip_smoke: build and phases 1-4 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -21,21 +21,21 @@
 // functions; never build with --use_fast_math), G the identity with c, c, s,
 // -s set in the reference's order.  The reference bakes K8's (gi, gj) into
 // the kernel at trace time; a library built ahead of time takes them as
-// runtime arguments.  Nothing is skipped: K8 multiplies G's zero entries and
-// K9 U's zero triangle, so a non-finite input gives the full product's
-// ±inf/NaN pattern (inf · 0 = NaN).
+// runtime arguments.  K7 and K8 skip nothing (K8 multiplies G's zero
+// entries), so a non-finite input gives the full product's ±inf/NaN pattern
+// (inf · 0 = NaN); K9 skips U's zero triangle and keeps that pattern by the
+// rule stated at scan_kernel.
 //
 // What bounds them on an H100: bytes.  K7/K8 move the fp32 A in and the fp32
-// result out (8 bytes per element against 2·m operations); K9 the same for x
-// against 2·block_n operations per element, below the card's ≈ 295
-// operations per byte.  This first version loads A with 4-byte loads straight
-// into the fragment registers (K7/K8) and stages x through shared memory as
-// bf16 words with synchronous 4-byte loads (K9, in k-slices of at most 4096
-// columns); vectorised or asynchronous copies are later work.
+// result out (8 bytes per element against 2·m operations), below the card's
+// ≈ 295 operations per byte; they load A with 4-byte loads straight into the
+// fragment registers.  K9 reads x once and writes the result once (8 bytes
+// per element against one add of the function, 32 tensor-core operations
+// of this design): a streaming pass, described at scan_kernel below.
 //
 // Ragged shapes are masked in the kernels: rows, columns and the contraction
 // past m, k, rows or block_n read as zero and are not stored.
-#include "tcec_core.cuh"
+#include "tcec_frag.cuh"
 
 namespace {
 
@@ -155,129 +155,234 @@ __global__ void __launch_bounds__(RULE_WARPS * 32)
     }
 }
 
-// K9: a block owns 16 rows and walks the column blocks in order, carrying
-// each row's fp32 offset (the reference's (rows, 1) scratch).  Per column
-// block the 16 x block_n tile of x is staged in shared memory as bf16 words
-// (rows padded to SCAN_PAD more elements), a k-slice of at most SCAN_SLICE
-// columns at a time, so any block_n fits; each warp computes 32-column groups
-// of partial = bf16(x) · U, one k16 step after another in k order, adds the
-// carry and stores; the value at column block_n - 1 becomes the carry.  With
-// more than one slice a group's running sum waits in the output between
-// slices (fp32, so exactly), and the next slice goes on adding to it: the
-// same sums in the same order as one slice.
+// K9 as a streaming scan.  Column c of a block_n block receives u(k, c) =
+// [k <= c], so of the full product x·U's k16 steps, in the reference's
+// order (K1's mma_passes<1>: each step on a fresh accumulator, the steps
+// added in fp32 in k order), column c sees: all-ones steps, each giving the
+// same tensor-core sum S(kk) of its 16 bf16 values in every column; then its
+// diagonal step, giving D(c); then zero steps.  So per row a running fp32
+// prefix R over the steps' S, in k order and restarting at each column
+// block, gives every column the same sums in the same order:
+//   o(c) = (R_before(step(c)) + D(c)) + carry,   carry = o(block_n - 1),
+// with finite inputs the full product's bits up to the sign of zero (the
+// zero steps add +-0).  Per k16 step a warp runs two mma.sync against the
+// diagonal step's triangle fragments, made once per thread from the rule in
+// registers (U reaches neither shared nor device memory); S(kk) is the
+// second's column 15, whose U column is all ones.  No mma touches the zero
+// triangle: 32 operations per element instead of 2 block_n.
+//
+// Data flow: a block owns 16 rows and walks all their k16 steps in order
+// (every column block, steps anchored at the block's start, a ragged last
+// step zero-padded).  A ring of SCAN_SLOTS slots of SCAN_STEPS steps (16 rows
+// x 128 fp32 columns) is filled by 16-byte cp.async copies (4-byte ones when
+// x or block_n is not 16-byte aligned), the next slots' copies in flight
+// while a slot is computed: each warp takes one step of the slot (A
+// fragments two values per cvt.rn.bf16x2.f32, bitwise K1's plain cast), and
+// writes S to shared memory; then warp 0 runs the slot's prefix chain (one
+// lane per row, the serial fp32 adds off the copy path) while the other
+// warps fill NaN where the previous slot asks it (below); after the next
+// barrier each warp writes its step's outputs once, as paired stores.
+// Nothing is read back from O.
+//
+// The non-finite rule.  In the full product a non-finite bf16(x) at k > c
+// (a finite fp32 value that rounds to +-inf in bf16 included) makes column
+// c NaN (inf * 0).  Inside c's step D(c) carries it and across earlier steps
+// R does; for a later step of the same block, a warp that finds a
+// non-finite value in its step's fragment marks the step in a per-row mask,
+// and the block (told by __syncthreads_or) sets to NaN, once the outputs are
+// written, every column of that row and block before the last marked step.
+// So the result has the full product's +-inf/NaN pattern.
 constexpr int SCAN_WARPS = 8;
 constexpr int SCAN_ROWS = 16;
-constexpr int SCAN_PAD = 8;
-constexpr int SCAN_SLICE = 4096;  // 16 x (4096 + 8) bf16 = 131 KB of shared memory
+constexpr int SCAN_STEPS = SCAN_WARPS;  // k16 steps per slot: one per warp
+constexpr int SCAN_SLOTS = 3;           // ring depth: two slots in flight
+constexpr int SCAN_LD = SCAN_STEPS * 16 + 8;  // fp32 row stride, = 8 mod 32
+constexpr int SCAN_SLD = SCAN_STEPS + 1;      // row stride of the chain arrays
 
-__host__ __device__ constexpr int scan_kpad(int bn) { return (bn + 15) / 16 * 16; }
-__host__ __device__ constexpr int scan_slice(int bn) {
-  return scan_kpad(bn) < SCAN_SLICE ? scan_kpad(bn) : SCAN_SLICE;
-}
-__host__ __device__ constexpr int scan_lds(int bn) { return scan_slice(bn) + SCAN_PAD; }
+// The rule: u(k, c) = [k <= c] at step-local positions.
+__device__ __forceinline__ float tri(int k, int c) { return bf16_round(k <= c ? 1.f : 0.f); }
 
-// u(k, c) = [k <= c] inside the block_n x block_n block, zero outside.
-__device__ __forceinline__ float tri(int k, int c, int bn) {
-  return bf16_round(k <= c && c < bn ? 1.f : 0.f);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Either half of a bf16 pair is inf or NaN.
+__device__ __forceinline__ bool nonfinite2(uint32_t w) {
+  return (w & 0x7F80u) == 0x7F80u || (w & 0x7F800000u) == 0x7F800000u;
 }
 
-__global__ void __launch_bounds__(SCAN_WARPS * 32)
-    scan_kernel(const float* __restrict__ X, float* __restrict__ O, int rows, int n, int bn) {
-  extern __shared__ __align__(16) uint16_t xs[];  // [SCAN_ROWS][lds]
-  __shared__ float carry_next[SCAN_ROWS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * SCAN_ROWS;
-  const int kpad = scan_kpad(bn), slice = scan_slice(bn), lds = scan_lds(bn);
-  const int groups = (bn + 31) / 32;
-  float carry[2] = {0.f, 0.f};  // rows r0 + g and r0 + g + 8
+// The row geometry shared by every thread of a call.
+struct ScanDims {
+  int rows, n, bn, spb, total;  // spb: k16 steps per block; total: steps per row
+  // First column of step q (in order over the blocks) and its columns.
+  __device__ int col(int q, int& valid) const {
+    const int b = q / spb, s = q - b * spb;
+    valid = min(16, bn - 16 * s);
+    return b * bn + 16 * s;
+  }
+};
 
-  for (int j0 = 0; j0 < n; j0 += bn) {
-    for (int k0 = 0; k0 < kpad; k0 += slice) {
-      const int kend = k0 + slice < kpad ? k0 + slice : kpad;
-      const bool first = k0 == 0, last = kend == kpad;
-      __syncthreads();  // every warp is done reading the previous tile
-      for (int c = tid; c < kend - k0; c += SCAN_WARPS * 32) {
-        const int col = k0 + c;
-        float x[SCAN_ROWS];
+// Start slot j's copies into ring slot j % SCAN_SLOTS (none past the end;
+// the group is committed either way, so the wait counts stay fixed).
+template <bool VEC>
+__device__ __forceinline__ void scan_copy(const ScanDims& d, const float* X, float* ring, int r0,
+                                          int j, int tid) {
+  constexpr int PER = VEC ? 4 : 1, CHUNKS = SCAN_ROWS * SCAN_STEPS * 16 / PER;
+  float* slot = ring + (j % SCAN_SLOTS) * SCAN_ROWS * SCAN_LD;
 #pragma unroll
-        for (int r = 0; r < SCAN_ROWS; ++r)
-          x[r] = (r0 + r < rows && col < bn) ? X[static_cast<long long>(r0 + r) * n + j0 + col]
-                                             : 0.f;
-#pragma unroll
-        for (int r = 0; r < SCAN_ROWS; ++r)
-          xs[r * lds + c] = __bfloat16_as_ushort(__float2bfloat16_rn(x[r]));
+  for (int u = 0; u < CHUNKS / (SCAN_WARPS * 32); ++u) {
+    const int idx = tid + u * SCAN_WARPS * 32;
+    const int row = idx / (CHUNKS / SCAN_ROWS), e = idx % (CHUNKS / SCAN_ROWS) * PER;
+    const int q = j * SCAN_STEPS + e / 16;
+    int valid = 0;
+    const int c0 = q < d.total ? d.col(q, valid) : 0;
+    const bool ok = r0 + row < d.rows && e % 16 < valid;
+    const float* src = ok ? X + static_cast<long long>(r0 + row) * d.n + c0 + e % 16 : X;
+    if (VEC)
+      frag::cp_async16(slot + row * SCAN_LD + e, src, ok);
+    else
+      frag::cp_async4(slot + row * SCAN_LD + e, src, ok);
+  }
+  frag::cp_async_commit();
+}
+
+// NaN where slot i's marks ask for it (see the non-finite rule): warps 1..7
+// own rows warp - 1, warp + 6, ...; nan_to[r] is the end of what row r has
+// already set, so every column is set once.  Clears the marks it read.
+__device__ void scan_fill(const ScanDims& d, float* O, uint32_t* mask, int* nan_to, int r0,
+                          int i, int warp, int lane) {
+  for (int r = warp - 1; r < SCAN_ROWS; r += SCAN_WARPS - 1) {
+    const uint32_t m = mask[r];
+    if (m == 0) continue;
+    float* orow = O + static_cast<long long>(r0 + r) * d.n;
+    int to = nan_to[r], last = -1;
+    for (int s = 0; s < SCAN_STEPS; ++s) {
+      const int q = i * SCAN_STEPS + s;
+      if (q >= d.total) break;
+      const int b = q / d.spb, sb = q - b * d.spb;
+      if (m >> s & 1) last = sb;
+      if (last >= 0 && (s == SCAN_STEPS - 1 || q + 1 == d.total || sb == d.spb - 1)) {
+        const int from = max(b * d.bn, to), upto = b * d.bn + 16 * last;
+        for (int c = from + lane; c < upto; c += 32) orow[c] = __int_as_float(0x7FFFFFFF);
+        to = max(to, upto);
+        last = -1;
       }
-      __syncthreads();
-
-      for (int grp = warp; grp < groups; grp += SCAN_WARPS) {
-        const int c0 = 32 * grp;
-        // The group's running sum: zero on the first slice, else what the
-        // previous slice stored (the same thread stored it).
-        float acc[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = g + 8 * (e >> 1), col = c0 + 8 * nt + 2 * t + (e & 1);
-            acc[nt][e] = !first && col < bn && r0 + rr < rows
-                             ? O[static_cast<long long>(r0 + rr) * n + j0 + col]
-                             : 0.f;
-          }
-        for (int kk = k0; kk < kend; kk += 16) {
-          // x's A fragment: (g, 2t..2t+1), (g+8, ...), (g, 2t+8..2t+9), (g+8, ...).
-          uint32_t fa[1][4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            fa[0][q] = ld_pair(xs + (g + 8 * (q & 1)) * lds + kk - k0 + 2 * t + 8 * (q >> 1));
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            // U's B fragment: (k = kk + 2t + {0, 1}, c) and (k = kk + 2t + {8, 9}, c).
-            const int c = c0 + 8 * nt + g, k = kk + 2 * t;
-            uint32_t fb[1][2] = {{pack2(tri(k, c, bn), tri(k + 1, c, bn)),
-                                  pack2(tri(k + 8, c, bn), tri(k + 9, c, bn))}};
-            tcec::mma_passes<1>(acc[nt], fa, fb);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = g + 8 * (e >> 1), col = c0 + 8 * nt + 2 * t + (e & 1);
-            if (col >= bn) continue;
-            const long long at = static_cast<long long>(r0 + rr) * n + j0 + col;
-            if (!last) {
-              if (r0 + rr < rows) O[at] = acc[nt][e];  // the running sum, for the next slice
-              continue;
-            }
-            const float o = acc[nt][e] + carry[e >> 1];  // o = partial + carry
-            if (r0 + rr < rows) O[at] = o;
-            if (col == bn - 1) carry_next[rr] = o;       // then carry = o[:, -1]
-          }
-      }
+      if (sb == d.spb - 1) last = -1;
     }
-    __syncthreads();
-    carry[0] = carry_next[g];
-    carry[1] = carry_next[g + 8];
+    __syncwarp();
+    if (lane == 0) {
+      mask[r] = 0;
+      nan_to[r] = to;
+    }
   }
 }
 
-// Opt the scan kernel in to the card's largest dynamic shared memory (once).
-cudaError_t scan_prepare() {
-  static const cudaError_t err = [] {
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - static_cast<int>(SCAN_ROWS * sizeof(float)));
-    return e;
-  }();
-  return err;
+template <bool VEC>
+__global__ void __launch_bounds__(SCAN_WARPS * 32)
+    scan_kernel(const float* __restrict__ X, float* __restrict__ O, ScanDims d) {
+  __shared__ __align__(16) float ring[SCAN_SLOTS * SCAN_ROWS * SCAN_LD];
+  __shared__ float s_sum[SCAN_ROWS * SCAN_SLD];   // S of each step of the slot
+  __shared__ float s_pre[SCAN_ROWS * SCAN_SLD];   // R before each step
+  __shared__ float s_car[SCAN_ROWS * SCAN_SLD];   // the block's carry at each step
+  __shared__ uint32_t s_mask[2][SCAN_ROWS];       // steps with a non-finite value
+  __shared__ int s_nan_to[SCAN_ROWS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * SCAN_ROWS;
+  const int slots = (d.total + SCAN_STEPS - 1) / SCAN_STEPS;
+  if (tid < SCAN_ROWS) {
+    s_mask[0][tid] = s_mask[1][tid] = 0;
+    s_nan_to[tid] = 0;
+  }
+  // The diagonal step's U fragments (16 x 8, col major): columns g and 8 + g.
+  const uint32_t diag[2][2] = {
+      {pack2(tri(2 * t, g), tri(2 * t + 1, g)), pack2(tri(2 * t + 8, g), tri(2 * t + 9, g))},
+      {pack2(tri(2 * t, 8 + g), tri(2 * t + 1, 8 + g)),
+       pack2(tri(2 * t + 8, 8 + g), tri(2 * t + 9, 8 + g))}};
+  float pre = 0.f, carry = 0.f;  // warp 0, lane r < 16: row r's chain
+  int step_in_block = 0;
+  float dv[2][4] = {};  // this warp's D of the previous slot's step
+  int marked = 0;       // the previous slot marked a non-finite value
+
+#pragma unroll 1
+  for (int j = 0; j < SCAN_SLOTS; ++j) scan_copy<VEC>(d, X, ring, r0, j, tid);
+
+#pragma unroll 1
+  for (int i = 0; i <= slots; ++i) {
+    frag::cp_async_wait<SCAN_SLOTS - 1>();
+    __syncthreads();  // slot i landed; the chain of slot i - 1 is in shared memory
+    if (i > 0 && (i - 1) * SCAN_STEPS + warp < d.total) {
+      // The outputs of slot i - 1's step: o = (R_before + D) + carry.
+      int valid;
+      const int c0 = d.col((i - 1) * SCAN_STEPS + warp, valid);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = g + 8 * h;
+        if (r0 + rr >= d.rows) continue;
+        const float p = s_pre[rr * SCAN_SLD + warp], cy = s_car[rr * SCAN_SLD + warp];
+        float* orow = O + static_cast<long long>(r0 + rr) * d.n + c0;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int c = 8 * nt + 2 * t;
+          const float o0 = (p + dv[nt][2 * h]) + cy, o1 = (p + dv[nt][2 * h + 1]) + cy;
+          if (VEC) {
+            if (c < valid) *reinterpret_cast<float2*>(orow + c) = make_float2(o0, o1);
+          } else {
+            if (c < valid) orow[c] = o0;
+            if (c + 1 < valid) orow[c + 1] = o1;
+          }
+        }
+      }
+    }
+    if (i == slots) {
+      if (marked) {
+        __syncthreads();  // the outputs are written before any NaN lands on them
+        if (warp > 0) scan_fill(d, O, s_mask[(i - 1) & 1], s_nan_to, r0, i - 1, warp, lane);
+      }
+      break;
+    }
+
+    // This warp's step of slot i: D for its 16 columns, S for the chain.
+    bool bad = false;
+    if (i * SCAN_STEPS + warp < d.total) {
+      const float* xs = ring + (i % SCAN_SLOTS) * SCAN_ROWS * SCAN_LD + 16 * warp + 2 * t;
+      uint32_t fa[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 v = *reinterpret_cast<const float2*>(xs + (g + 8 * (r & 1)) * SCAN_LD +
+                                                          8 * (r >> 1));
+        fa[r] = frag::cvt2(v.x, v.y);
+      }
+      tcec::mma_16816(dv[0], fa, diag[0]);
+      tcec::mma_16816(dv[1], fa, diag[1]);
+      if (t == 3) {  // column 15: S of rows g and g + 8
+        s_sum[g * SCAN_SLD + warp] = dv[1][1];
+        s_sum[(g + 8) * SCAN_SLD + warp] = dv[1][3];
+      }
+      const bool bad_g = nonfinite2(fa[0]) || nonfinite2(fa[2]);
+      const bool bad_g8 = nonfinite2(fa[1]) || nonfinite2(fa[3]);
+      if (bad_g) atomicOr(&s_mask[i & 1][g], 1u << warp);
+      if (bad_g8) atomicOr(&s_mask[i & 1][g + 8], 1u << warp);
+      bad = bad_g || bad_g8;
+    }
+    const int marks = __syncthreads_or(bad);  // S in shared memory; slot i's x read
+    scan_copy<VEC>(d, X, ring, r0, i + SCAN_SLOTS, tid);
+    if (warp == 0) {
+      if (lane < SCAN_ROWS) {
+        // Row lane's prefix chain over slot i's steps, in k order.
+#pragma unroll
+        for (int s = 0; s < SCAN_STEPS; ++s) {
+          if (i * SCAN_STEPS + s >= d.total) break;
+          s_pre[lane * SCAN_SLD + s] = pre;
+          s_car[lane * SCAN_SLD + s] = carry;
+          pre = pre + s_sum[lane * SCAN_SLD + s];
+          if (++step_in_block == d.spb) {  // the block's last column: o = pre + carry
+            carry = pre + carry;
+            pre = 0.f;
+            step_in_block = 0;
+          }
+        }
+      }
+    } else if (marked) {
+      scan_fill(d, O, s_mask[(i - 1) & 1], s_nan_to, r0, i - 1, warp, lane);
+    }
+    marked = marks;
+  }
 }
 
 template <class Rule>
@@ -318,11 +423,16 @@ int repro_givens_apply(const float* theta, const float* A, float* O, int batch, 
 // offset; block_n divides n.  fp32, contiguous.
 int repro_scan_cumsum(const float* X, float* O, int rows, int n, int block_n, void* stream) {
   if (block_n <= 0 || n % block_n != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = scan_prepare();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(uint16_t) * SCAN_ROWS * scan_lds(block_n);
-  scan_kernel<<<(rows + SCAN_ROWS - 1) / SCAN_ROWS, SCAN_WARPS * 32, smem,
-                static_cast<cudaStream_t>(stream)>>>(X, O, rows, n, block_n);
+  const int spb = (block_n + 15) / 16;
+  const ScanDims d{rows, n, block_n, spb, n / block_n * spb};
+  const unsigned blocks = (rows + SCAN_ROWS - 1) / SCAN_ROWS;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte copies need every row, step and x itself 16-byte aligned.
+  if (block_n % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(O) % 8 == 0)
+    scan_kernel<true><<<blocks, SCAN_WARPS * 32, 0, st>>>(X, O, d);
+  else
+    scan_kernel<false><<<blocks, SCAN_WARPS * 32, 0, st>>>(X, O, d);
   return static_cast<int>(cudaGetLastError());
 }
 

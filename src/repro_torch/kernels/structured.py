@@ -10,7 +10,8 @@ devices raise.
   * ``householder_apply`` (K7) — (I - 2 v v^T) A per batch;
   * ``givens_apply`` (K8) — G(gi, gj, theta_b) A per batch;
   * ``scan_cumsum`` (K9) — row-wise cumsum as blockwise x·U with the
-    triangular ones U and a carried fp32 offset.
+    triangular ones U and a carried fp32 offset; the kernel computes only
+    U's diagonal steps and a running prefix (``scan_launcher``).
 
 All three run one bf16 pass: the structured operand and the data are
 rounded to bf16 with the plain round-to-nearest-even cast (so a finite fp32
@@ -216,8 +217,13 @@ def scan_cumsum_plain(x: torch.Tensor, block_n: int = 256) -> torch.Tensor:
 
 def scan_launcher(x: torch.Tensor, block_n: int = 256):
     """Validate a K9 call on a CUDA tensor; returns ``(out, launch)``.  Any
-    block_n that divides n: the kernel stages the block's 16 x block_n
-    tile in k-slices of at most 4096 columns."""
+    block_n that divides n.  The kernel streams x through a ring of fixed
+    16 x 128 tiles whatever block_n is: per k16 step it multiplies by the
+    diagonal step's triangle only, and a running fp32 prefix over the
+    steps' sums (restarting at each block) stands in for the all-ones steps,
+    the full product's sums in its order.  A non-finite bf16(x) at k > c
+    in c's block makes column c NaN (the full product's inf * 0), so the
+    result keeps the plain version's ±inf/NaN pattern."""
     what = "scan_cumsum"
     block_n = _scan_block(x, block_n)
     rows, n = x.shape

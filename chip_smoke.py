@@ -61,8 +61,8 @@ It imports nothing of JAX or of the ``repro`` package.  It
      one, checks the bf16-overflow ±inf/NaN pattern, and times kernel,
      plain version and the staged library flow (``torch.bmm`` of the
      materialized matrix in bf16, and in fp32 with TF32 off, the one call
-     that computes the kernel's function; for the scan fp32
-     ``torch.cumsum``).
+     that computes the kernel's function, beside a device copy of A; for
+     the scan fp32 ``torch.cumsum``).
 
 Any failed check exits non-zero.  It prints the card's name and power limit,
 a ``{"kernels": [...]}`` line (``launches``: host calls of the kernel's
@@ -81,8 +81,11 @@ focus; it fails if ``ptxas -v`` reports a spill in K6), ``--k9-only``
 (K9 alone: the structured library built alone, what ``ptxas -v`` says of it
 (it fails on a spill in K9), K9 at every shape of ``K9_SHAPES`` held
 against its plain version with a digest of each result, timed beside fp32
-``torch.cumsum``, a device copy of x and its bound) and ``--profile-only`` (phase 2's profiles
-alone).  ``--src DIR`` drives the
+``torch.cumsum``, a device copy of x and its bound), ``--k7-only`` (the
+same for K7 and K8 at every shape of ``K7_SHAPES``, timed beside fp32 and
+bf16 ``torch.bmm`` of the materialized matrix, a device copy of A and the
+bound; it fails on a spill in ``rule_apply_kernel``) and
+``--profile-only`` (phase 2's profiles alone).  ``--src DIR`` drives the
 ``repro_torch`` package under DIR instead of this checkout's, so an earlier
 commit's tree, unpacked, is measured by the same code.
 """
@@ -1943,7 +1946,7 @@ def check_structured(dev, results):
             n_bytes, flops, xu_ops = k9_work(r, n, bn)
         ms = time_ms(launch)
         plain_ms = time_ms(plain, queued=False)
-        fp32_ms = None
+        fp32_ms = copy_ms = None
         if make is None:
             lib = "torch.cumsum fp32"
             lib_ms = time_ms(lambda: torch.cumsum(x, dim=1))
@@ -1958,18 +1961,22 @@ def check_structured(dev, results):
             mat32 = make32()
             fp32_ms = time_ms(lambda: torch.bmm(mat32, a))
             make_ms = time_ms(make)
+            dst = torch.empty_like(a)
+            copy_ms = time_ms(lambda: dst.copy_(a))  # the same bytes moved
             b_ms, b_by = bound_ms(n_bytes, flops)
         row.update(kernel=kname, dims=list(shape), ms=ms, plain_ms=plain_ms,
                    library=lib, library_ms=lib_ms,
                    library_fp32_ms=fp32_ms, materialize_ms=make_ms,
-                   bound_ms=b_ms, bound_by=b_by, launches=counts[kname])
+                   copy_ms=copy_ms, bound_ms=b_ms, bound_by=b_by,
+                   launches=counts[kname])
         if make is None:
             row["xu_operations"] = xu_ops
         print(f"{kname:17s} {s:9s} {str(shape):24s}: {ms:.4f} ms (plain "
               f"{plain_ms:.4f}, {lib} {lib_ms:.4f}"
               + ("" if make_ms is None else f" + materialize {make_ms:.4f}")
               + ("" if fp32_ms is None else
-                 f", torch.bmm fp32 (TF32 off) {fp32_ms:.4f}")
+                 f", torch.bmm fp32 (TF32 off) {fp32_ms:.4f}, a copy of A "
+                 f"{copy_ms:.4f}")
               + f", bound {b_ms:.4f} {b_by}"
               + ("" if make is not None else
                  f"; the reference's x·U would be {xu_ops:.3e} operations")
@@ -2080,6 +2087,165 @@ def check_k9(dev, rows, probe: bool = False):
         print(text, flush=True)
 
 
+#: K7/K8 alone (``--k7-only``): name -> (op, batch, m, k, gi, gj, non-finite
+#: values of A as (batch, row, column, value), of v as (batch, row,
+#: value)).  The path's shapes (timed), the parity shapes, and the edges of
+#: the kernel's work items: M of 20, 144 and 272 (M > 128: row groups and
+#: k slabs of 128 rows), K of 3 (4-byte copies), 36 and 1000 (column
+#: slices), batch 1 and 37, K8 with gi and gj in different row tiles; ±inf
+#: and NaN in A at a row tile's edge, in a second column slice and in a
+#: later slab, a finite v whose products overflow, a bf16-overflowing A.
+#: ``unaligned`` shapes run on a contiguous view at storage offset 1.
+K7_NONFINITE = {
+    "hh_nonfinite_tile_edge": ("hh", 37, 20, 300, 0, 0,
+                               [(1, 15, 7, float("inf")),
+                                (1, 16, 200, float("nan")),
+                                (2, 19, 299, float("-inf"))], []),
+    "hh_nonfinite_slab": ("hh", 2, 272, 40, 0, 0,
+                          [(0, 200, 35, float("inf")),
+                           (1, 127, 3, float("nan"))], []),
+    "hh_v_overflow": ("hh", 4, 32, 64, 0, 0, [], [(1, 7, 3.4e38)]),
+    "hh_bf16_overflow": ("hh", 3, 20, 24, 0, 0,
+                         [(0, 4, 7, BF16_OVERFLOW), (0, 6, 7, -BF16_OVERFLOW),
+                          (1, 9, 0, BF16_OVERFLOW)], []),
+    "gv_nonfinite_row_groups": ("gv", 37, 144, 40, 5, 140,
+                                [(0, 15, 3, float("inf")),
+                                 (2, 130, 39, float("nan"))], []),
+    "gv_bf16_overflow": ("gv", 3, 20, 24, 2, 11,
+                         [(0, 4, 7, BF16_OVERFLOW), (1, 9, 0, -BF16_OVERFLOW)],
+                         []),
+}
+K7_SHAPES = {
+    **{f"hh_{n}": ("hh", *shape, 0, 0, [], []) for n, shape in HH_PATH.items()},
+    **{f"gv_{n}": ("gv", *shape, [], []) for n, shape in GV_PATH.items()},
+    **{f"hh_parity_{b}x{m}x{k}": ("hh", b, m, k, 0, 0, [], [])
+       for b, m, k in HH_PARITY},
+    **{f"gv_parity_{b}x{m}x{k}": ("gv", b, m, k, gi, gj, [], [])
+       for b, m, k, gi, gj in GV_PARITY},
+    "hh_b37_m20_k36": ("hh", 37, 20, 36, 0, 0, [], []),
+    "hh_b1_m20_k3": ("hh", 1, 20, 3, 0, 0, [], []),
+    "hh_b1_m144_k1000": ("hh", 1, 144, 1000, 0, 0, [], []),
+    "hh_b37_m144_k36": ("hh", 37, 144, 36, 0, 0, [], []),
+    "hh_b37_m272_k3": ("hh", 37, 272, 3, 0, 0, [], []),
+    "hh_b1_m272_k1000": ("hh", 1, 272, 1000, 0, 0, [], []),
+    "gv_b37_m20_k36": ("gv", 37, 20, 36, 3, 17, [], []),
+    "gv_b1_m272_k1000": ("gv", 1, 272, 1000, 5, 260, [], []),
+    "gv_b37_m144_k3": ("gv", 37, 144, 3, 140, 2, [], []),
+    "hh_unaligned_b37_m20_k36": ("hh", 37, 20, 36, 0, 0, [], []),
+    "gv_unaligned_b9_m32_k64": ("gv", 9, 32, 64, 3, 17, [], []),
+    **K7_NONFINITE,
+}
+
+
+def k7_inputs(dev, gen, op, b, m, k, bad, vbad, unaligned):
+    """Seeded operands of a ``K7_SHAPES`` row: (v or theta, A) on ``dev``,
+    A a contiguous view at storage offset 1 where ``unaligned``."""
+    import torch
+    if unaligned:
+        a = torch.randn(b * m * k + 1, generator=gen, device=dev)[1:].view(
+            b, m, k)
+    else:
+        a = torch.randn(b, m, k, generator=gen, device=dev)
+    for bi, i, j, val in bad:
+        a[bi, i, j] = val
+    if op == "hh":
+        v = torch.randn(b, m, generator=gen, device=dev)
+        v = v / v.norm(dim=-1, keepdim=True)
+        for bi, i, val in vbad:
+            v[bi, i] = val
+        return v, a
+    return torch.randn(b, generator=gen, device=dev), a
+
+
+def check_k7(dev, rows, probe: bool = False):
+    """K7 and K8 alone at every shape of ``K7_SHAPES`` through
+    ``householder_launcher``/``givens_launcher`` (which every tree of the
+    port has): one launch moves its counter once; the result is within
+    1e-5 of the plain version (numpy's allclose at rtol = atol = 1e-5), or
+    has exactly its ±inf/NaN pattern with non-finite inputs; K8's untouched
+    rows equal bf16(A) on finite inputs; prints each result's digest; at
+    the path's shapes times the kernel alone (CUDA events, warm L2), the
+    materialized matrix through fp32 ``torch.bmm`` (TF32 off: the kernel's
+    function) and bf16 ``torch.bmm``, a device copy of A (the same bytes
+    moved) and the plain version beside the bound.  With ``probe`` it
+    checks nothing and runs the path's shapes only."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import structured as st
+    from repro_torch.core import fragment
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    bf = torch.bfloat16
+    for name, (op, b, m, k, gi, gj, bad, vbad) in K7_SHAPES.items():
+        timed = name.startswith(("hh_bench", "hh_full", "gv_bench",
+                                 "gv_full"))
+        x, a = k7_inputs(dev, gen, op, b, m, k, bad, vbad,
+                         "unaligned" in name)
+        if probe and not timed:
+            continue
+        if op == "hh":
+            out, launch = st.householder_launcher(x, a)
+            plain_fn = functools.partial(st.householder_plain, x, a)
+            kname = "householder_apply"
+        else:
+            out, launch = st.givens_launcher(x, a, gi, gj)
+            plain_fn = functools.partial(st.givens_plain, x, a, gi, gj)
+            kname = "givens_apply"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        launch()
+        torch.cuda.synchronize()
+        moved = {c: n for c, n in launch_counts().items() if n}
+        plain = plain_fn()
+        nonfinite = bool(bad or vbad)
+        if nonfinite:
+            err = 0.0 if same_nonfinite(out, plain, 1e-5) else float("inf")
+        else:
+            err = close(out, plain, 1e-5)
+        kept = None
+        if op == "gv" and not nonfinite:
+            keep = [r for r in range(m) if r not in (gi, gj)]
+            kept = torch.equal(out[:, keep], a.to(bf).float()[:, keep])
+        row = dict(shape=name, op=op, dims=[b, m, k, gi, gj],
+                   nonfinite=nonfinite, max_abs_err=err, digest=digest(out),
+                   launches=moved, untouched_rows_bf16=kept,
+                   aligned=a.data_ptr() % 16 == 0)
+        if not probe and (moved != {kname: 1} or err == float("inf")
+                          or kept is False
+                          or (not nonfinite
+                              and not bool(torch.isfinite(out).all()))
+                          or (nonfinite
+                              and bool(torch.isfinite(plain).all()))):
+            fail(f"K7/K8 {name} {(b, m, k)}: launches {moved}, kernel vs "
+                 f"plain {err:.3e}, untouched rows bf16(A) {kept}")
+        text = f"{'K7' if op == 'hh' else 'K8'} {name:28s} " \
+            f"{str((b, m, k)):18s}: " + (
+                "unchecked (probe)" if probe else
+                "plain's ±inf/NaN pattern" if nonfinite else
+                f"max abs {err:.3e}") + (
+            "" if kept is None else f", untouched rows bf16(A) {kept}") \
+            + f" | digest {row['digest']}"
+        if timed:
+            mat32 = fragment.householder(x) if op == "hh" else \
+                st.givens_matrices(x, m, gi, gj)
+            b_ms, b_by = bound_ms(4 * (x.numel() + 2 * a.numel()),
+                                  2.0 * b * m * m * k)
+            mat, a_bf = mat32.to(bf), a.to(bf)
+            row.update(ms=time_ms(launch),
+                       bmm_fp32_ms=time_ms(lambda: torch.bmm(mat32, a)),
+                       bmm_bf16_ms=time_ms(lambda: torch.bmm(mat, a_bf)),
+                       copy_ms=time_ms(lambda: out.copy_(a)),
+                       plain_ms=time_ms(plain_fn, queued=False),
+                       bound_ms=b_ms, bound_by=b_by)
+            text += (f" | {row['ms']:.4f} ms, fp32 torch.bmm "
+                     f"{row['bmm_fp32_ms']:.4f}, bf16 torch.bmm "
+                     f"{row['bmm_bf16_ms']:.4f}, a copy of A "
+                     f"{row['copy_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                     f"bound {b_ms:.4f} ({b_by}, {b_ms / row['ms']:.0%})")
+        rows.append(row)
+        print(text, flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parity-only", action="store_true",
@@ -2105,9 +2271,14 @@ def main(argv=None) -> int:
                          "ptxas says of K9 (fails on a spill) and run K9 "
                          "alone at the shapes of K9_SHAPES: checks, digests, "
                          "times; no result line")
+    ap.add_argument("--k7-only", action="store_true",
+                    help="build the structured library alone, print what "
+                         "ptxas says of K7/K8 (fails on a spill) and run K7 "
+                         "and K8 alone at the shapes of K7_SHAPES: checks, "
+                         "digests, times; no result line")
     ap.add_argument("--probe", action="store_true",
-                    help="with --k2b-only, --k5-only, --k6-only or "
-                         "--k9-only: time that kernel alone (K2b/K5/K6 under "
+                    help="with --k2b-only, --k5-only, --k6-only, --k7-only "
+                         "or --k9-only: time that kernel alone (K2b/K5/K6 under "
                          "the bf16 policies) and check nothing (for a copy "
                          "of the kernel changed on purpose, driven through "
                          "--src)")
@@ -2145,7 +2316,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     if args.k3_only:
         _build.LIBS = {"flash_attention": _build.LIBS["flash_attention"]}
-    if args.k9_only:
+    if args.k9_only or args.k7_only:
         _build.LIBS = {"structured": _build.LIBS["structured"]}
     which = "k2b" if args.k2b_only else "k5" if args.k5_only else \
         "k6" if args.k6_only else None
@@ -2228,6 +2399,23 @@ def main(argv=None) -> int:
         (out_dir / "chip_smoke_k9.json").write_text(
             json.dumps(results, indent=1))
         print(f"k9-only: passed in {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr)
+        return 0
+    if args.k7_only:
+        print("ptxas -v of K7-K9:", flush=True)
+        results["k7_build"] = ptxas_report(build, "libstructured_p*.log")
+        spills = [f"{_kernel_name(k['kernel'])}{_template_args(k['kernel'])}"
+                  for ks in results["k7_build"].values() for k in ks
+                  if _kernel_name(k["kernel"]) == "rule_apply_kernel"
+                  and k["spill_stores"] + k["spill_loads"]]
+        if spills and not args.probe:
+            fail(f"K7/K8 spill: {spills}")
+        rows = []
+        check_k7(dev, rows, args.probe)
+        results["k7"] = rows
+        (out_dir / "chip_smoke_k7.json").write_text(
+            json.dumps(results, indent=1))
+        print(f"k7-only: passed in {time.perf_counter() - t_start:.1f} s",
               file=sys.stderr)
         return 0
     if args.k3_only:

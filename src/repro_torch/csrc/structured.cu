@@ -9,7 +9,8 @@
 // or the triangular ones U — is never stored.  Each thread evaluates the
 // rule at the (row, col) positions its own m16n8k16 fragment registers hold
 // (layouts in tcec_core.cuh), rounds each value to bf16 with the plain RNE
-// cast (tcec::bf16_round) and packs it straight into the register: H, G and
+// cast (tcec::bf16_round, or frag::cvt2 two values at a time, the same
+// bits) and packs it straight into the register: H, G and
 // U reach neither shared nor global memory.  The data operand (A or x) is
 // cast to bf16 in registers with the same RNE cast.  One bf16 pass, as in
 // the reference: each k16 step is one mma.sync on a fresh zero accumulator,
@@ -28,13 +29,16 @@
 //
 // What bounds them on an H100: bytes.  K7/K8 move the fp32 A in and the fp32
 // result out (8 bytes per element against 2·m operations), below the card's
-// ≈ 295 operations per byte; they load A with 4-byte loads straight into the
-// fragment registers.  K9 reads x once and writes the result once (8 bytes
-// per element against one add of the function, 32 tensor-core operations
-// of this design): a streaming pass, described at scan_kernel below.
+// ≈ 295 operations per byte: a staged, pipelined pass that reads each
+// element of A from device memory once, described at rule_apply_kernel
+// below.  K9 reads x once and writes the result once (8 bytes per element
+// against one add of the function, 32 tensor-core operations of this
+// design): a streaming pass, described at scan_kernel below.
 //
 // Ragged shapes are masked in the kernels: rows, columns and the contraction
 // past m, k, rows or block_n read as zero and are not stored.
+#include <algorithm>
+
 #include "tcec_frag.cuh"
 
 namespace {
@@ -42,117 +46,297 @@ namespace {
 using tcec::bf16_round;
 using tcec::pack2;
 
-// K7/K8: one warp computes a 16 x 32 tile of one batch's output (four n8
-// tiles); a block holds four independent warps.
+// K7/K8 as a staged, pipelined pass.  Each element of A comes from device
+// memory once (at M <= 128; above, once per row group of 128 rows, below),
+// staged in shared memory and read from there by every row tile; the
+// rule's operand is made in registers once per unit and stage; outputs go
+// out as paired stores; a ring keeps the next stages' copies in flight.
+//
+// Work: a work item is NB whole batches (when a batch's A fits one slice),
+// or one batch's column slice of W columns, W a power of two >= 32, with
+// all M rows (M <= 128), or, above M = 128, one batch's 32-column slice and
+// one row group of 128 output rows, its contraction streamed through the
+// ring in k16 slabs of 128 rows (each row group re-reads its slice, mostly
+// from L2), the slabs in k order.  A stage is one item's slab (the whole
+// item at M <= 128).  Of an item's output, a unit is one 16-row tile of one
+// batch times one 32-column group (four n8 tiles); a block's four warps
+// take two units each (units w and w + 4), so an item has at most 8 units.
+// W is as wide and NB as large as that allows (larger items measured
+// faster), except that NB halves while the batch count would leave fewer
+// than RULE_ITEMS_PER_SM items per SM.
+//
+// Data flow: a persistent grid (blocks per SM from the occupancy of this
+// call's shared memory) walks items with a stride of the grid.  A ring of
+// RULE_SLOTS slots per block; a slot holds a stage's A rows (fp32, row
+// stride W + 4, = 4 mod 32 words, so a B fragment's reads of rows 2t, 2t + 1
+// of a column hit 32 banks) by 16-byte cp.async (4-byte where A or K is not
+// aligned for them), zero-filled past M, K and the last batch, and the
+// rule's inputs: v at the staged rows and at the item's output rows (K7),
+// theta of the item's batches (K8), by 4-byte cp.async.  One barrier per
+// stage: wait for stage j, barrier, start stage j + 2's copies into the slot
+// stage j - 1 used, compute stage j; stages j + 1 and j + 2 are in flight
+// meanwhile.  Per unit and stage a warp makes the rule's A fragments of all
+// the slab's k16 steps (K7: v from the slot, no FMA contraction; K8: cosf and
+// sinf of the staged angle, G's four entries set in the reference's order),
+// then per step and n8 tile the B fragment from the slot (two values per
+// cvt.rn.bf16x2.f32, bitwise K1's plain cast) and one mma.sync on a fresh
+// accumulator, added in fp32 in k order (K1's mma_passes<1>): the same
+// fragments, mma's and sums in the same order whatever the item, slab or
+// unit, so the bits depend on the shape alone.  After an
+// item's last slab the unit's 16 x 32 outputs are stored as float2 pairs
+// (whole 32-byte sectors; staging them for 16-byte stores measured no
+// faster).
+//
+// Footprint (H100): a slot is rows x (W + 4) + Rule::PARAMS floats (K7 256,
+// K8 8), rows x W <= 4096, so <= 19,456 B; three slots <= 58,368 B of
+// dynamic shared memory per block.  At K7's (16384, 32, 64) (NB 2) and K8's
+// (32768, 32, 32) (NB 4) a slot is 18,432 and 18,464 B, a block 55,296 and
+// 55,392 B, so 4 blocks per SM (shared memory; 116 registers a thread
+// would allow 4 as well), each keeping two 16 KB stages in flight: 128 KB of
+// copies in flight per SM (3.35 TB/s x ~1.3 us / 132 SMs ~ 32 KB).
 constexpr int RULE_WARPS = 4;
-constexpr int NT = 4;
+constexpr int RULE_THREADS = RULE_WARPS * 32;
+constexpr int NT = 4;                             // n8 tiles of a unit
+constexpr int RULE_UNITS = 2;                     // units per warp and stage
+constexpr int RULE_SLAB = 128;                    // most A rows a stage holds
+constexpr int RULE_STEPS = RULE_SLAB / 16;        // k16 steps of a slab
+constexpr int RULE_SLOTS = 3;                     // ring depth: two in flight
+constexpr int RULE_MAX_SLOT = RULE_SLAB * (32 + 4) + 2 * RULE_SLAB;  // floats
+constexpr int RULE_ITEMS_PER_SM = 16;  // NB shrinks until there are this many
 
-// K7's rule.  v: (batch, M).
-struct Householder {
-  const float* v;
-  int M;
-  const float* vb;  // this batch's vector
-  float vi[2];      // v at the thread's rows i0 and i0 + 8
-
-  __device__ void start(int b, int i0) {
-    vb = v + static_cast<long long>(b) * M;
-    vi[0] = i0 < M ? vb[i0] : 0.f;
-    vi[1] = i0 + 8 < M ? vb[i0 + 8] : 0.f;
-  }
-  // h(i, j) at row i = i0 + 8 * half; zero outside M x M.
-  __device__ float at(int i, int half, int j) const {
-    if (i >= M || j >= M) return 0.f;
-    return __fsub_rn(i == j ? 1.f : 0.f, __fmul_rn(__fmul_rn(2.f, vi[half]), vb[j]));
-  }
+// The call's geometry, made on the host by rule_dims.
+struct RuleDims {
+  int batch, M, K;
+  int W, ncg;          // slice width and its 32-column groups
+  int nb;              // batches per item
+  int rg_tiles, n_rg;  // row tiles per item, row groups per batch
+  int n_slices, n_slabs;
+  int rows, ld;        // A rows a slot holds, and their stride (W + 4)
+  int params;          // floats of the rule's inputs in a slot (Rule::PARAMS)
+  int items;
+  __host__ __device__ int slot_floats() const { return rows * ld + params; }
 };
 
-// K8's rule.  theta: (batch,).
-struct Givens {
-  const float* theta;
-  int M, gi, gj;
-  float c, s;
-
-  __device__ void start(int b, int) {
-    const float th = theta[b];
-    c = cosf(th);
-    s = sinf(th);
-  }
-  __device__ float at(int i, int, int j) const {
-    if (i >= M || j >= M) return 0.f;
-    float g = i == j ? 1.f : 0.f;
-    if (i == gi && j == gi) g = c;
-    if (i == gj && j == gj) g = c;
-    if (i == gi && j == gj) g = s;
-    if (i == gj && j == gi) g = -s;
-    return g;
-  }
+// What a stage copies and computes (all indices from its stage number).
+struct RuleStage {
+  long long row0, irow0;  // A/v rows (of the batch * M rows) of the slab and
+                          // of the item's first output row
+  int nrows, nirows;      // how many of each exist
+  int b0, nbv;            // the item's first batch, its batches that exist
+  int rg, k0, c0, ncols;  // row group, first k of the slab, slice columns
+  bool last;              // the item's last slab
 };
 
-// The rule's A fragment (16 x 16, row major) of k step kk: register q holds
-// row i0 + 8 (q & 1), columns j and j + 1 with j = kk + 2t + 8 (q >> 1).
-template <class Rule>
-__device__ __forceinline__ void rule_frag(const Rule& r, int i0, int kk, int t,
-                                          uint32_t (&fa)[1][4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int half = q & 1, i = i0 + 8 * half, j = kk + 2 * t + 8 * (q >> 1);
-    fa[0][q] = pack2(bf16_round(r.at(i, half, j)), bf16_round(r.at(i, half, j + 1)));
-  }
+__device__ __forceinline__ RuleStage rule_stage(const RuleDims& d, int j) {
+  RuleStage s;
+  // (a divisor of 1, the common case, skips its division)
+  const int il = d.n_slabs == 1 ? j : j / d.n_slabs, slab = j - il * d.n_slabs;
+  const int item = blockIdx.x + il * gridDim.x, rest = d.n_rg == 1 ? item : item / d.n_rg;
+  s.rg = item - rest * d.n_rg;
+  const int bg = d.n_slices == 1 ? rest : rest / d.n_slices;
+  s.c0 = (rest - bg * d.n_slices) * d.W;
+  s.b0 = bg * d.nb;
+  s.nbv = min(d.nb, d.batch - s.b0);
+  s.k0 = slab * RULE_SLAB;
+  s.row0 = static_cast<long long>(s.b0) * d.M + s.k0;
+  s.nrows = min(d.rows, s.nbv * d.M - s.k0);
+  s.irow0 = static_cast<long long>(s.b0) * d.M + s.rg * RULE_SLAB;
+  s.nirows = min(RULE_SLAB, s.nbv * d.M - s.rg * RULE_SLAB);
+  s.ncols = min(d.W, d.K - s.c0);
+  s.last = slab == d.n_slabs - 1;
+  return s;
 }
 
-// The data operand's B fragment (16 x 8, col major) of k step kk for column
-// c: rows kk + 2t + {0, 1} and kk + 2t + {8, 9} of A (M x K, row major).
-__device__ __forceinline__ void data_frag(const float* A, int M, int K, int kk, int t, int c,
-                                          uint32_t (&fb)[1][2]) {
-  float x[4];
+// K7's rule, h(i, j) = (i == j) - (2 v_i) v_j, zero outside M x M.
+struct Householder {
+  static constexpr int PARAMS = 2 * RULE_SLAB;
+  const float* v;  // (batch, M)
+
+  // The stage's v: at its staged rows (p[0..128)) and at its item's output
+  // rows (p[128..256)).
+  __device__ void copy(float* p, const RuleStage& s, int tid) const {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int j = kk + 2 * t + (q & 1) + 8 * (q >> 1);
-    x[q] = (j < M && c < K) ? A[static_cast<long long>(j) * K + c] : 0.f;
+    for (int r = tid; r < PARAMS; r += RULE_THREADS) {
+      const bool out = r >= RULE_SLAB;
+      const int rr = out ? r - RULE_SLAB : r;
+      const bool ok = rr < (out ? s.nirows : s.nrows);
+      frag::cp_async4(p + r, ok ? v + (out ? s.irow0 : s.row0) + rr : v, ok);
+    }
   }
-  fb[0][0] = pack2(bf16_round(x[0]), bf16_round(x[1]));
-  fb[0][1] = pack2(bf16_round(x[2]), bf16_round(x[3]));
+  // One unit's rule: its batch nb in the item, its rows i0 and i0 + 8
+  // (il0: i0 within the row group).
+  struct Unit {
+    const float* vk;  // v at the slab's k positions of the unit's batch
+    float two_vi[2];  // 2 v_i at the thread's rows
+    int M;
+    __device__ float at(int i, int half, int j, int jl) const {
+      if (i >= M || j >= M) return 0.f;
+      return __fsub_rn(i == j ? 1.f : 0.f, __fmul_rn(two_vi[half], vk[jl]));
+    }
+  };
+  __device__ Unit unit(const float* p, int M, int nb, int i0, int il0) const {
+    Unit u;
+    u.vk = p + nb * M;
+    u.M = M;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      u.two_vi[h] = i0 + 8 * h < M ? __fmul_rn(2.f, p[RULE_SLAB + nb * M + il0 + 8 * h]) : 0.f;
+    return u;
+  }
+};
+
+// K8's rule: the identity with c, c, s, -s set in the reference's order.
+struct Givens {
+  static constexpr int PARAMS = RULE_WARPS * RULE_UNITS;  // an angle per batch
+  const float* theta;  // (batch,)
+  int gi, gj;
+
+  __device__ void copy(float* p, const RuleStage& s, int tid) const {
+    if (tid < PARAMS) {  // at most one batch per unit
+      const bool ok = tid < s.nbv;
+      frag::cp_async4(p + tid, ok ? theta + s.b0 + tid : theta, ok);
+    }
+  }
+  struct Unit {
+    float c, s;
+    int M, gi, gj;
+    __device__ float at(int i, int, int j, int) const {
+      if (i >= M || j >= M) return 0.f;
+      float g = i == j ? 1.f : 0.f;
+      if (i == gi && j == gi) g = c;
+      if (i == gj && j == gj) g = c;
+      if (i == gi && j == gj) g = s;
+      if (i == gj && j == gi) g = -s;
+      return g;
+    }
+  };
+  __device__ Unit unit(const float* p, int M, int nb, int, int) const {
+    const float th = p[nb];
+    return Unit{cosf(th), sinf(th), M, gi, gj};
+  }
+};
+
+// Start stage j's copies into its slot (none past the block's last stage;
+// the group is committed either way, so the wait counts stay fixed).
+template <bool VEC, class Rule>
+__device__ __forceinline__ void rule_copy(const RuleDims& d, const Rule& rule, const float* A,
+                                          float* slot, int j, int stages, int tid) {
+  if (j < stages) {
+    constexpr int PER = VEC ? 4 : 1;
+    const RuleStage s = rule_stage(d, j);
+    const int cpr = d.W / PER, shift = __ffs(cpr) - 1;  // chunks per row (a power of two)
+    const int chunks = d.rows * cpr;
+#pragma unroll 4
+    for (int idx = tid; idx < chunks; idx += RULE_THREADS) {
+      const int r = idx >> shift, c = (idx & (cpr - 1)) * PER;
+      const bool ok = r < s.nrows && c < s.ncols;
+      const float* src = ok ? A + (s.row0 + r) * d.K + s.c0 + c : A;
+      if (VEC)
+        frag::cp_async16(slot + r * d.ld + c, src, ok);
+      else
+        frag::cp_async4(slot + r * d.ld + c, src, ok);
+    }
+    rule.copy(slot + d.rows * d.ld, s, tid);
+  }
+  frag::cp_async_commit();
 }
 
 // O_b = R_b · A_b for a rule-made R (M x M) and A (batch, M, K), fp32 out.
-// Work item of a warp: (batch, 16-row tile, 32-column group), row tiles
-// fastest so the warps of a block share their A columns in L1.
-template <class Rule>
-__global__ void __launch_bounds__(RULE_WARPS * 32)
-    rule_apply_kernel(Rule rule, const float* __restrict__ A, float* __restrict__ O, int batch,
-                      int M, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m_tiles = (M + 15) / 16, n_groups = (K + 8 * NT - 1) / (8 * NT);
-  const long long item = static_cast<long long>(blockIdx.x) * RULE_WARPS + (threadIdx.x >> 5);
-  if (item >= static_cast<long long>(batch) * m_tiles * n_groups) return;  // whole warps
-  const int i0 = static_cast<int>(item % m_tiles) * 16 + g;
-  const long long rest = item / m_tiles;
-  const int c0 = static_cast<int>(rest % n_groups) * 8 * NT;
-  const int b = static_cast<int>(rest / n_groups);
-  const float* Ab = A + static_cast<long long>(b) * M * K;
-  float* Ob = O + static_cast<long long>(b) * M * K;
-  Rule r = rule;
-  r.start(b, i0);
+// VEC: A 16-byte aligned with K % 4 == 0 and O 8-byte aligned (16-byte
+// copies, paired stores); else 4-byte copies and single stores.
+template <class Rule, bool VEC>
+__global__ void __launch_bounds__(RULE_THREADS)
+    rule_apply_kernel(Rule rule, const float* __restrict__ A, float* __restrict__ O, RuleDims d) {
+  extern __shared__ __align__(16) float ring[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int stages = (d.items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                     static_cast<int>(gridDim.x) * d.n_slabs;
+  const int K = d.K, M = d.M, slot_floats = d.slot_floats();
 
-  float acc[NT][4] = {};
-  for (int kk = 0; kk < M; kk += 16) {
-    uint32_t fa[1][4];
-    rule_frag(r, i0, kk, t, fa);
+#pragma unroll 1
+  for (int j = 0; j < RULE_SLOTS - 1; ++j)
+    rule_copy<VEC>(d, rule, A, ring + j * slot_floats, j, stages, tid);
+
+  float acc[RULE_UNITS][NT][4];
+  int cur = 0;  // stage j's slot, j % RULE_SLOTS
+#pragma unroll 1
+  for (int j = 0; j < stages; ++j, cur = cur == RULE_SLOTS - 1 ? 0 : cur + 1) {
+    frag::cp_async_wait<RULE_SLOTS - 2>();
+    __syncthreads();  // stage j landed; every warp is done with stage j - 1's slot
+    rule_copy<VEC>(d, rule, A, ring + (cur == 0 ? RULE_SLOTS - 1 : cur - 1) * slot_floats,
+                   j + RULE_SLOTS - 1, stages, tid);
+    const RuleStage s = rule_stage(d, j);
+    const float* slot = ring + cur * slot_floats;
+    const float* p = slot + d.rows * d.ld;
+    const int steps = min(RULE_STEPS, (M - s.k0 + 15) / 16);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t fb[1][2];
-      data_frag(Ab, M, K, kk, t, c0 + 8 * nt + g, fb);
-      tcec::mma_passes<1>(acc[nt], fa, fb);
+    for (int q = 0; q < RULE_UNITS; ++q) {
+      // Unit -> (batch in the item, row tile in the group, column group).
+      const int u = warp + q * RULE_WARPS, cg = u % d.ncg, rest = u / d.ncg;
+      const int rt = rest % d.rg_tiles, nb = rest / d.rg_tiles;
+      const int il0 = rt * 16 + g, i0 = s.rg * RULE_SLAB + il0;  // the thread's first row
+      if (nb >= s.nbv || i0 - g >= M || cg * 32 >= s.ncols) continue;  // whole warps
+      if (s.k0 == 0) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][nt][e] = 0.f;
+      }
+      // The rule's A fragments (16 x 16, row major) of every step of the
+      // slab: register r holds row i0 + 8 (r & 1), columns j and j + 1 with
+      // j = k0 + 16 st + 2t + 8 (r >> 1).
+      const typename Rule::Unit ru = rule.unit(p, M, nb, i0, il0);
+      uint32_t fa[RULE_STEPS][1][4];
+#pragma unroll
+      for (int st = 0; st < RULE_STEPS; ++st) {
+        if (st >= steps) break;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int half = r & 1, i = i0 + 8 * half, jl = 16 * st + 2 * t + 8 * (r >> 1);
+          fa[st][0][r] = frag::cvt2(ru.at(i, half, s.k0 + jl, jl),
+                                    ru.at(i, half, s.k0 + jl + 1, jl + 1));
+        }
+      }
+      // The data's B fragments (16 x 8, col major) from the slot: rows
+      // 16 st + 2t + {0, 1, 8, 9} of the unit's batch, column g of each n8
+      // tile; rows past M read as zero.
+      const float* xs = slot + nb * M * d.ld + cg * 32 + g;
+#pragma unroll
+      for (int st = 0; st < RULE_STEPS; ++st) {
+        if (st >= steps) break;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jl = 16 * st + 2 * t + (e & 1) + 8 * (e >> 1);
+            x[e] = s.k0 + jl < M ? xs[jl * d.ld + 8 * nt] : 0.f;
+          }
+          const uint32_t fb[1][2] = {{frag::cvt2(x[0], x[1]), frag::cvt2(x[2], x[3])}};
+          tcec::mma_passes<1>(acc[q][nt], fa[st], fb);
+        }
+      }
+      if (!s.last) continue;
+      // acc[q][nt][e] is at row i0 + 8 (e >> 1), column 8 nt + 2t + (e & 1).
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (i0 + 8 * h >= M) continue;
+        float* orow = O + (static_cast<long long>(s.b0 + nb) * M + i0 + 8 * h) * K + s.c0 + cg * 32;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int c = 8 * nt + 2 * t;
+          if (VEC) {
+            if (cg * 32 + c < s.ncols)
+              *reinterpret_cast<float2*>(orow + c) = make_float2(acc[q][nt][2 * h], acc[q][nt][2 * h + 1]);
+          } else {
+            if (cg * 32 + c < s.ncols) orow[c] = acc[q][nt][2 * h];
+            if (cg * 32 + c + 1 < s.ncols) orow[c + 1] = acc[q][nt][2 * h + 1];
+          }
+        }
+      }
     }
   }
-  // acc[nt][e] is at row i0 + 8 (e >> 1), column c0 + 8 nt + 2t + (e & 1).
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = i0 + 8 * (e >> 1), col = c0 + 8 * nt + 2 * t + (e & 1);
-      if (row < M && col < K) Ob[static_cast<long long>(row) * K + col] = acc[nt][e];
-    }
+  frag::cp_async_wait<0>();
 }
 
 // K9 as a streaming scan.  Column c of a block_n block receives u(k, c) =
@@ -385,16 +569,79 @@ __global__ void __launch_bounds__(SCAN_WARPS * 32)
   }
 }
 
+// The geometry of a K7/K8 call (see rule_apply_kernel) on a card of `sms`
+// SMs.  Returns false when the work items do not fit an int.
+bool rule_dims(int batch, int M, int K, int params, int sms, RuleDims& d) {
+  d.batch = batch;
+  d.M = M;
+  d.K = K;
+  d.params = params;
+  const int m_tiles = (M + 15) / 16, kcg = (K + 31) / 32;
+  long long items;
+  if (m_tiles <= RULE_STEPS) {  // all rows in one item: A read once
+    const int cap = RULE_WARPS * RULE_UNITS / m_tiles;  // column groups an item can take
+    d.ncg = 1;
+    while (2 * d.ncg <= cap && d.ncg < kcg) d.ncg *= 2;
+    d.W = 32 * d.ncg;
+    d.n_slices = (K + d.W - 1) / d.W;
+    // Whole batches per item: as many as the units allow, fewer where the
+    // batch count would leave fewer than RULE_ITEMS_PER_SM items per SM.
+    d.nb = d.n_slices == 1 ? RULE_WARPS * RULE_UNITS / (m_tiles * d.ncg) : 1;
+    while (d.nb > 1 && (batch + d.nb - 1) / d.nb < RULE_ITEMS_PER_SM * sms) d.nb /= 2;
+    d.rg_tiles = m_tiles;
+    d.n_rg = 1;
+    d.rows = d.nb * M;
+    d.n_slabs = 1;
+    items = static_cast<long long>((batch + d.nb - 1) / d.nb) * d.n_slices;
+  } else {  // row groups of 128 rows, the contraction in slabs of 128 rows
+    d.ncg = 1;
+    d.W = 32;
+    d.n_slices = kcg;
+    d.nb = 1;
+    d.rg_tiles = RULE_STEPS;
+    d.n_rg = (m_tiles + RULE_STEPS - 1) / RULE_STEPS;
+    d.rows = RULE_SLAB;
+    d.n_slabs = d.n_rg;
+    items = static_cast<long long>(batch) * d.n_slices * d.n_rg;
+  }
+  d.ld = d.W + 4;
+  d.items = static_cast<int>(items);
+  return items <= 0x7FFFFFFFLL;
+}
+
+template <class Rule, bool VEC>
+cudaError_t launch_rule_t(const Rule& rule, const float* A, float* O, const RuleDims& d, int sms,
+                          cudaStream_t stream) {
+  const auto kernel = rule_apply_kernel<Rule, VEC>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RULE_SLOTS * RULE_MAX_SLOT * 4);
+  if (attr != cudaSuccess) return attr;
+  const int smem = RULE_SLOTS * d.slot_floats() * 4;
+  int per_sm = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, RULE_THREADS, smem);
+  if (e != cudaSuccess) return e;
+  const int grid = static_cast<int>(
+      std::min<long long>(d.items, static_cast<long long>(std::max(per_sm, 1)) * sms));
+  kernel<<<grid, RULE_THREADS, smem, stream>>>(rule, A, O, d);
+  return cudaGetLastError();
+}
+
+// 16-byte copies need K % 4 == 0 and A 16-byte aligned; paired stores O
+// 8-byte aligned.
 template <class Rule>
 cudaError_t launch_rule(const Rule& rule, const float* A, float* O, int batch, int M, int K,
                         cudaStream_t stream) {
-  const long long items =
-      static_cast<long long>(batch) * ((M + 15) / 16) * ((K + 8 * NT - 1) / (8 * NT));
-  const long long blocks = (items + RULE_WARPS - 1) / RULE_WARPS;
-  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  rule_apply_kernel<Rule><<<static_cast<unsigned>(blocks), RULE_WARPS * 32, 0, stream>>>(
-      rule, A, O, batch, M, K);
-  return cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  RuleDims d;
+  if (!rule_dims(batch, M, K, Rule::PARAMS, sms, d)) return cudaErrorInvalidValue;
+  if (K % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(O) % 8 == 0)
+    return launch_rule_t<Rule, true>(rule, A, O, d, sms, stream);
+  return launch_rule_t<Rule, false>(rule, A, O, d, sms, stream);
 }
 
 }  // namespace
@@ -405,7 +652,7 @@ extern "C" {
 // fp32, contiguous.  Returns cudaGetLastError() after the launch.
 int repro_householder_apply(const float* v, const float* A, float* O, int batch, int M, int K,
                             void* stream) {
-  const Householder rule{v, M, nullptr, {0.f, 0.f}};
+  const Householder rule{v};
   return static_cast<int>(
       launch_rule(rule, A, O, batch, M, K, static_cast<cudaStream_t>(stream)));
 }
@@ -414,7 +661,7 @@ int repro_householder_apply(const float* v, const float* A, float* O, int batch,
 // K), fp32, contiguous.
 int repro_givens_apply(const float* theta, const float* A, float* O, int batch, int M, int K,
                        int gi, int gj, void* stream) {
-  const Givens rule{theta, M, gi, gj, 0.f, 0.f};
+  const Givens rule{theta, gi, gj};
   return static_cast<int>(
       launch_rule(rule, A, O, batch, M, K, static_cast<cudaStream_t>(stream)));
 }

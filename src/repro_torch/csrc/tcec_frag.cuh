@@ -1,7 +1,7 @@
 // Fragment and copy helpers shared by the kernels that stage source tiles
 // with cp.async and feed mma.sync from shared memory: K2
 // (tcec_matmul_k2.cu), K2b (tcec_matmul.cu), K3 (flash_attention.cu), K4
-// (paged_attention.cu) and K9 (structured.cu).  The split words are still made in registers (K1,
+// (paged_attention.cu) and K7-K9 (structured.cu).  The split words are still made in registers (K1,
 // tcec_core.cuh; K2b and K3 make the same words two values at a time);
 // nothing here stages a word.
 #pragma once

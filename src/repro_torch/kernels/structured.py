@@ -8,7 +8,10 @@ tensors; there is no fallback from one to the other, and operands on two
 devices raise.
 
   * ``householder_apply`` (K7) — (I - 2 v v^T) A per batch;
-  * ``givens_apply`` (K8) — G(gi, gj, theta_b) A per batch;
+  * ``givens_apply`` (K8) — G(gi, gj, theta_b) A per batch; K7 and K8 are
+    one kernel, a staged, pipelined pass: A through a ring of shared-memory
+    slots by ``cp.async`` (each element read once from device memory where
+    M <= 128), the rule's fragments made in registers, paired stores;
   * ``scan_cumsum`` (K9) — row-wise cumsum as blockwise x·U with the
     triangular ones U and a carried fp32 offset; the kernel computes only
     U's diagonal steps and a running prefix (``scan_launcher``).

@@ -21,7 +21,14 @@ It imports nothing of JAX or of the ``repro`` package.  It
      TCEC matmuls (K2, K2b, K5, K6) also
      against an fp64 oracle, K2 also at ragged shapes under every pair of
      operand dtypes and twice for the same bits, with the plan it ran
-     (tile, k splits) and the passes it ran, and K2b, K5 and K6 bitwise
+     (tile, k splits), the passes it ran and a digest of each result; K2's
+     ``frag=`` arm (K2f: the rhs made from a menu rule in registers) at
+     ``K2F_SHAPES`` under bf16x1/x3/x6, bitwise K2 on the rule built as a
+     bf16 tensor, with its shared memory per block beside K2's, then
+     through ``tcec.einsum`` (its path: ``"pallas_fragment"`` recorded, no
+     ``build()`` call, counters zeroed before and read after), timed beside
+     K2 on the built rhs, fp32 ``torch.matmul`` and ``torch.cumsum``; and
+     K2b, K5 and K6 bitwise
      against each other over the whole tile menu — and times kernel, plain
      version and a PyTorch library call (a yardstick the port never calls)
      with CUDA events (K2 also with the L2 cache flushed before each call,
@@ -70,7 +77,11 @@ wrapper on its path, one per call; ``enqueues``: what one call puts on the
 stream), and as its last line
 ``{"ok": true, "device": {...}}``.  Full tables go to
 ``build/chip_smoke.json``.  ``--parity-only`` stops after phase 1 and prints
-no result line; so do ``--k3-only`` (K3 alone: what ``ptxas -v`` says of
+no result line (driving an earlier tree through ``--src``, it skips K2f
+where that tree has no ``frag=`` arm); so do ``--k2f-only`` (K2's library
+built alone, what ``ptxas -v`` says of K2 with the ``frag=`` arm's
+instantiations marked, and K2f's phase-1 rows and path), ``--k3-only``
+(K3 alone: what ``ptxas -v`` says of
 each instantiation, its phase-1 rows and the probes of ``K3_PROBES``),
 ``--k2b-only`` (K2b alone: what ``ptxas -v`` says of K2b, K5 and K6, and
 K2b at every shape of ``k2b_shapes()``, bitwise against K5 and K6 at every
@@ -96,6 +107,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import inspect
 import json
 import re
 import subprocess
@@ -271,6 +283,7 @@ def check_k2(dev, rows, flush):
                 pol = get_policy(name)
                 # fp32 operands: accuracy against the fp64 oracle.
                 got = tm.tcec_matmul_fused(a32, b32, pol)
+                digests = [digest(got)]
                 err_o = max_rel(got, oracle)
                 if err_o >= ORACLE_TOL[name]:
                     fail(f"K2 {name} m={m} k={k} n={n}: fp64-oracle error "
@@ -280,6 +293,7 @@ def check_k2(dev, rows, flush):
                 # The path's dtypes and epilogue: against the plain version.
                 kw = dict(bias=bias, activation=act)
                 got = tm.tcec_matmul_fused(x, w, pol, **kw)
+                digests.append(digest(got))
                 same = same and same_bits(got, tm.tcec_matmul_fused(
                     x, w, pol, **kw))
                 plain = tm.tcec_matmul_plain(x, w, pol, **kw)
@@ -314,7 +328,7 @@ def check_k2(dev, rows, flush):
                            oracle_err=err_o, max_abs_err=float(
                                (got.double() - plain.double()).abs().max()),
                            rel_err_vs_plain=err_p, bitwise_repeat=same,
-                           ms=t["ms"], cold_ms=t["cold_ms"],
+                           digests=digests, ms=t["ms"], cold_ms=t["cold_ms"],
                            plain_ms=plain_ms, library_ms=t["library_ms"],
                            library_bf16_ms=t["library_bf16_ms"],
                            bound_ms=b_ms, bound_by=b_by)
@@ -326,10 +340,11 @@ def check_k2(dev, rows, flush):
                       f"{t['cold_ms']:.4f} (plain {plain_ms:.4f}, fp32 "
                       f"matmul {t['library_ms']:.4f}, bf16 matmul "
                       f"{t['library_bf16_ms']:.4f}, bound {b_ms:.4f} "
-                      f"{b_by})", flush=True)
+                      f"{b_by}) | digests {'/'.join(digests)}", flush=True)
                 if (m, k, n, name) == K2_HEADLINE:
                     headline = row
-    check_k2_ragged(dev, gen)
+    rows.append(dict(kernel="tcec_matmul", layer="ragged",
+                     digests=check_k2_ragged(dev, gen)))
     return headline
 
 
@@ -338,7 +353,8 @@ def check_k2_ragged(dev, gen):
     epilogue: within 1e-5 of the plain version (fp32 out; a bf16 store is
     the cast of the kernel's fp32 result, bit for bit), the fp64 oracle on
     fp32 operands, the same bits on a second call; then non-finite inputs
-    give the plain version's ±inf/NaN pattern."""
+    give the plain version's ±inf/NaN pattern.  Returns a digest of each
+    result, by (shape, dtypes, policy)."""
     import torch
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import tcec_matmul as tm
@@ -348,7 +364,7 @@ def check_k2_ragged(dev, gen):
                                               None),
               (bf, f32, f32, "relu", bf, None), (f32, f32, None, None, None,
                                                  None))
-    n_checked = 0
+    n_checked, digests = 0, {}
     for m, k, n in K2_RAGGED:
         for a_dt, w_dt, bias_dt, act, res_dt, out_dt in combos:
             x = torch.randn(m, k, generator=gen, device=dev).to(a_dt)
@@ -381,6 +397,8 @@ def check_k2_ragged(dev, gen):
                         >= ORACLE_TOL[name]:
                     fail(f"K2 ragged {name} ({m}, {k}, {n}): fp64 oracle")
                 n_checked += 1
+                digests[f"{m}x{k}x{n} {str(a_dt)[6:]}/{str(w_dt)[6:]} "
+                        f"{name}"] = digest(got.float())
     # Non-finite values in the fp32 lhs, then in bf16 weights (both halves
     # of a packed pair) against a bf16 lhs, at decode and prefill tiles:
     # plans with splits (the fix-up folded into the reduce kernel) and, at
@@ -408,7 +426,232 @@ def check_k2_ragged(dev, gen):
     print(f"K2 ragged: {n_checked} (shape, dtypes, policy) rows within "
           f"tolerance of the plain version and the same bits twice; "
           f"non-finite inputs give the plain version's ±inf/NaN pattern "
-          f"(fix-up folded into the reduce and on its own)", flush=True)
+          f"(fix-up folded into the reduce and on its own); digests "
+          f"{' '.join(digests.values())}", flush=True)
+    return digests
+
+
+#: K2's frag= arm (K2f): name -> (lhs shape, lhs dtype, menu rule and its
+#: arguments, epilogue, non-finite lhs values as (row, column, value)).
+#: The reference's cumsum block; the prefill tile at 64 MB in and out; the
+#: decode tile with k splits and the whole epilogue; a band with a
+#: residual; a 3-D lhs whose rows are not 16-byte multiples (element
+#: copies); ±inf and NaN in the lhs (the guarded policies only).
+K2F_SHAPES = {
+    "cumsum_4096x256": ((4096, 256), "float32", ("triangular", 256), {},
+                        ()),
+    "prefill_16384x1024": ((16384, 1024), "float32", ("triangular", 1024),
+                           {}, ()),
+    "decode_4x896": ((4, 896), "bfloat16", ("identity", 896),
+                     dict(bias=True, activation="silu",
+                          out_dtype="bfloat16"), ()),
+    "banded_288x4864": ((288, 4864), "float32", ("banded", 4864, 3, 1),
+                        dict(residual=True), ()),
+    "unaligned_3x37x45": ((3, 37, 45), "float32",
+                          ("triangular", 45, False, True), {}, ()),
+    "nonfinite_64x256": ((64, 256), "float32", ("triangular", 256), {},
+                         ((1, 3, float("inf")), (4, 255, float("-inf")),
+                          (7, 0, float("nan")), (9, 100, float("inf")))),
+}
+K2F_HEADLINE = ("prefill_16384x1024", "bf16x6")
+
+
+def k2f_operands(dev, gen, name):
+    """A ``K2F_SHAPES`` row on ``dev``: (x, the rule's operand, epilogue
+    keywords)."""
+    import torch
+    from repro_torch import tcec
+    shape, a_dt, (rule, *args), ep, bad = K2F_SHAPES[name]
+    x = torch.randn(*shape, generator=gen, device=dev)
+    for i, j, v in bad:
+        x[i, j] = v
+    x = x.to(getattr(torch, a_dt))
+    n = args[0]
+    kw = dict(activation=ep.get("activation"),
+              out_dtype=getattr(torch, ep["out_dtype"])
+              if "out_dtype" in ep else None,
+              bias=torch.randn(n, generator=gen, device=dev).to(
+                  torch.bfloat16) if ep.get("bias") else None,
+              residual=torch.randn(*shape[:-1], n, generator=gen, device=dev)
+              if ep.get("residual") else None)
+    op = getattr(tcec, rule)(*args, device=dev)
+    return x, op, kw
+
+
+def k2f_work(x, out, op, kw, passes: int):
+    """(bytes, operations, the passes' operations) of a K2f call: x read
+    once, the output written once, bias and residual read once (the rule
+    is made in registers: no rhs bytes); per output element the fp32 adds
+    that a running sum over the band needs (a triangle 1, a band of width
+    w min(w - 1, 2), the identity none) and one per epilogue term (what
+    the function needs, whatever computes it); and, as a figure of its
+    own, the 2·m·n·k operations of each pass the arm runs."""
+    m = x.numel() // x.shape[-1]
+    k, n = op.shape
+    extra = [t for t in (kw["bias"], kw["residual"]) if t is not None]
+    n_bytes = (x.numel() * x.element_size() + out.numel() * out.element_size()
+               + sum(t.numel() * t.element_size() for t in extra))
+    lo, hi = op.rule.band()
+    adds = 1 if lo is None or hi is None else min(hi - lo, 2)
+    per_out = adds + len(extra) + int(kw["activation"] is not None)
+    return n_bytes, float(per_out) * out.numel(), 2.0 * m * n * k * passes
+
+
+def k2f_smem(x_dtype, tile, pol):
+    """K2's shared memory per block for the frag= arm and for a loaded bf16
+    (and, with an fp32 lhs, fp32) rhs at ``tile``, as the card reports."""
+    import torch
+    from repro_torch.kernels import tcec_matmul as tm
+    rhs = [("frag", None), ("bf16", torch.bfloat16)]
+    if x_dtype == torch.float32:
+        rhs.append(("fp32", torch.float32))
+    return {what: tm.k2_attrs(tile, x_dtype, dt, pol)
+            for what, dt in rhs}
+
+
+def check_k2f(dev, rows):
+    """K2's frag= arm at every shape of ``K2F_SHAPES`` under bf16x1/x3/x6:
+    bitwise K2 on the rule built as a bf16 (k, n) tensor, within 1e-5 of
+    the plain version (a bf16 store is the cast of the arm's own fp32
+    result), the plain version's ±inf/NaN
+    pattern (the error is the max-norm one of K2's rows, ``max_rel``: the
+    fp32 sums differ in order only); times (CUDA events, warm L2) of the
+    arm, K2 on the built rhs,
+    fp32 ``torch.matmul`` of the built matrix (TF32 off: the same function)
+    and, beside the upper-triangular rows, ``torch.cumsum``; the bound
+    (``k2f_work``: what the function needs) and the passes' operations;
+    shared memory per block for both flows.  Then the path: every (shape,
+    policy) through ``tcec.einsum`` under the policy's kernel variant, the
+    launch counts zeroed just before and read just after, with
+    ``FragmentOperand.build`` spied on: each call records
+    ``"pallas_fragment"``, builds nothing, gives the arm's bits and
+    launches the arm once.  Returns (the headline row, the path's
+    launches)."""
+    import dataclasses
+    import torch
+    from repro_torch import tcec
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import tcec_matmul as tm
+    from repro_torch.tcec.operands import FragmentOperand
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    headline, calls, smem_seen = None, [], {}
+    for name, (shape, a_dt, rule, _, bad) in K2F_SHAPES.items():
+        x, op, kw = k2f_operands(dev, gen, name)
+        built = op.build().to(torch.bfloat16)
+        policies = ("bf16x3", "bf16x6") if bad else K2_POLICIES
+        for pname in policies:
+            pol = get_policy(pname)
+            got = tm.tcec_matmul_fused(x, None, pol, frag=op, **kw)
+            k2 = tm.tcec_matmul_fused(x, built, pol, **kw)
+            kw32 = dict(kw, out_dtype=None)
+            got32 = tm.tcec_matmul_fused(x, None, pol, frag=op, **kw32)
+            plain = tm.tcec_matmul_plain(x, None, pol, frag=op, **kw32)
+            if bad:
+                err = 0.0 if same_nonfinite(got32, plain) else float("inf")
+                abs_err = err
+                pattern = not bool(torch.isfinite(plain).all())
+            else:
+                err = max_rel(got32, plain)
+                abs_err = float((got32.double() - plain.double()).abs().max())
+                pattern = bool(torch.isfinite(got32).all()) \
+                    and bool(torch.isfinite(plain).all())
+            bitwise = same_bits(got, k2)
+            cast = same_bits(got, got32.to(got.dtype))
+            if not (bitwise and cast and pattern) or err >= 1e-5:
+                fail(f"K2f {name} {pname}: bitwise K2 on the built rhs "
+                     f"{bitwise}, store cast {cast}, ±inf/NaN pattern "
+                     f"{pattern}, kernel vs plain {err:.3e} (limit 1e-5)")
+            calls.append((name, pname, x, op, kw, got))
+            run = tm.k2_passes(pol, x.dtype, None)
+            _, _, launch = tm.launcher(x, None, pol, frag=op, **kw)
+            plan = launch.plan
+            row = dict(kernel="tcec_matmul_frag", shape=name,
+                       dims=list(shape) + [op.shape[1]], policy=pname,
+                       rule=list(op.menu), lhs_dtype=a_dt,
+                       nonfinite=bool(bad), tile=plan.tile,
+                       splits=plan.splits, blocks=plan.blocks,
+                       passes_run=[list(p) for p in run],
+                       bitwise_k2_built=bitwise, max_abs_err=abs_err,
+                       rel_err_vs_plain=err, digest=digest(got.float()))
+            text = (f"K2f {name:20s} {pname}: {plan.tile} x{plan.splits} "
+                    f"({plan.blocks} blocks), passes {run} | bitwise K2 on "
+                    f"the built bf16 rhs, " + (
+                        "plain's ±inf/NaN pattern" if bad else
+                        f"vs plain {err:.2e} (max abs {abs_err:.3e})") +
+                    f" | digest {row['digest']}")
+            if not bad:
+                _, _, k2_launch = tm.launcher(x, built, pol, **kw)
+                a32, b32 = x.float(), built.float()
+                n_bytes, flops, pass_ops = k2f_work(x, got, op, kw, len(run))
+                b_ms, b_by = bound_ms(n_bytes, flops, FP32_FLOPS)
+                row.update(ms=time_ms(launch), k2_built_ms=time_ms(k2_launch),
+                           library_ms=time_ms(lambda: torch.matmul(a32, b32)),
+                           plain_ms=time_ms(functools.partial(
+                               tm.tcec_matmul_plain, x, None, pol, frag=op,
+                               **kw), queued=False),
+                           bound_ms=b_ms, bound_by=b_by,
+                           passes_operations=pass_ops)
+                text += (f" | {row['ms']:.4f} ms, K2 on the built rhs "
+                         f"{row['k2_built_ms']:.4f}, fp32 matmul "
+                         f"{row['library_ms']:.4f}, plain "
+                         f"{row['plain_ms']:.4f}")
+                if op.menu == (0, 1, 0):           # upper, not strict
+                    row["cumsum_ms"] = time_ms(
+                        lambda: torch.cumsum(a32, dim=-1))
+                    text += f", torch.cumsum {row['cumsum_ms']:.4f}"
+                text += (f", bound {b_ms:.4f} ({b_by}, "
+                         f"{b_ms / row['ms']:.1%}); the passes "
+                         f"{pass_ops:.3e} operations")
+                key = (plan.tile, x.dtype, pname)
+                if key not in smem_seen:
+                    smem_seen[key] = k2f_smem(x.dtype, plan.tile, pol)
+                row["attrs"] = smem_seen[key]
+                text += " | smem/block " + ", ".join(
+                    f"{w} {a['smem_bytes']} B ({a['blocks_per_sm']}/SM, "
+                    f"{a['regs']} regs)" for w, a in row["attrs"].items())
+            if (name, pname) == K2F_HEADLINE:
+                headline = row
+            rows.append(row)
+            print(text, flush=True)
+    # The path: the frontend, with the counters zeroed just before.
+    built_calls = []
+    orig = FragmentOperand.build
+    FragmentOperand.build = lambda self: (built_calls.append(self),
+                                          orig(self))[1]
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with tcec.trace_plans() as log:
+            outs = []
+            for name, pname, x, op, kw, _ in calls:
+                eq = "bmk,kn->bmn" if x.dim() == 3 else "mk,kn->mn"
+                ep = tcec.Epilogue(bias=kw["bias"],
+                                   activation=kw["activation"],
+                                   residual=kw["residual"],
+                                   out_dtype=kw["out_dtype"])
+                pol = dataclasses.replace(get_policy(pname), kernel="pallas")
+                outs.append(tcec.einsum(eq, x, op, policy=pol, epilogue=ep))
+        torch.cuda.synchronize()
+        launches = {c: v for c, v in launch_counts().items() if v}
+    finally:
+        FragmentOperand.build = orig
+    if built_calls or [r.backend for r in log] != \
+            ["pallas_fragment"] * len(calls) or \
+            launches.get("tcec_matmul_frag") != len(calls) or \
+            launches.get("tcec_matmul"):
+        fail(f"K2f through tcec.einsum: records "
+             f"{sorted(set(r.backend for r in log))}, {len(built_calls)} "
+             f"build() calls, launches {launches}")
+    for (name, pname, *_, got), out in zip(calls, outs):
+        if not same_bits(out, got):
+            fail(f"K2f {name} {pname}: tcec.einsum gave other bits than "
+                 f"the arm")
+    print(f"K2f through tcec.einsum: {len(calls)} calls, each recorded "
+          f"pallas_fragment with the arm's bits, no build() call; launches "
+          f"{launches}", flush=True)
+    return headline, launches
 
 
 #: K3's rows: name -> (b, h, kvh, sq, d, dv, causal, input dtype).
@@ -2250,6 +2493,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parity-only", action="store_true",
                     help="build and run phase 1 only; no result line")
+    ap.add_argument("--k2f-only", action="store_true",
+                    help="build K2's library alone, print what ptxas says "
+                         "of K2 (the frag= arm's instantiations marked) and "
+                         "run K2's frag= arm at the shapes of K2F_SHAPES "
+                         "and through tcec.einsum; no result line")
     ap.add_argument("--k3-only", action="store_true",
                     help="build K3 alone, print what ptxas says of it, run "
                          "its phase-1 rows and the probes of K3_PROBES; no "
@@ -2314,6 +2562,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from repro_torch.kernels import _build
+    if args.k2f_only:
+        _build.LIBS = {"tcec_matmul": _build.LIBS["tcec_matmul"]}
     if args.k3_only:
         _build.LIBS = {"flash_attention": _build.LIBS["flash_attention"]}
     if args.k9_only or args.k7_only:
@@ -2418,6 +2668,27 @@ def main(argv=None) -> int:
         print(f"k7-only: passed in {time.perf_counter() - t_start:.1f} s",
               file=sys.stderr)
         return 0
+    if args.k2f_only:
+        print("ptxas -v of K2 (frag= arm: B = RuleRhs):", flush=True)
+        results["k2_build"] = ptxas_report(build, "libtcec_matmul_p*.log")
+        results["k2f_build"] = {
+            lib: [dict(k, frag="RuleRhs" in k["kernel"]) for k in ks
+                  if _kernel_name(k["kernel"]) == "k2_kernel"]
+            for lib, ks in results["k2_build"].items()}
+        for lib, ks in results["k2f_build"].items():
+            for k in ks:
+                if k["frag"]:
+                    print(f"  frag= arm, {lib}: {k['registers']} registers, "
+                          f"spill {k['spill_stores']}/{k['spill_loads']} B",
+                          flush=True)
+        rows = []
+        _, results["k2f_launches"] = check_k2f(dev, rows)
+        results["k2f"] = rows
+        (out_dir / "chip_smoke_k2f.json").write_text(
+            json.dumps(results, indent=1))
+        print(f"k2f-only: passed in {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr)
+        return 0
     if args.k3_only:
         rows = []
         check_k3(dev, rows)
@@ -2429,11 +2700,20 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 0
     rows = []
-    heads = {"tcec_matmul": check_k2(dev, rows, l2_flush(dev)),
-             "flash_attention": check_k3(dev, rows),
-             "paged_attention": check_k4(dev, rows),
-             **check_family(dev, rows),
-             "nonfinite_fixup": check_fixup(dev, rows)}
+    heads = {"tcec_matmul": check_k2(dev, rows, l2_flush(dev))}
+    from repro_torch.kernels import tcec_matmul as tm
+    if "frag" in inspect.signature(tm.tcec_matmul_fused).parameters:
+        heads["tcec_matmul_frag"], k2f_launches = check_k2f(dev, rows)
+    elif src != SRC.resolve():
+        # An earlier tree, driven through --src, without the frag= arm.
+        k2f_launches = None
+        print(f"K2f: {src} has no frag= arm; not run", flush=True)
+    else:
+        fail("tcec_matmul_fused takes no frag=")
+    heads.update({"flash_attention": check_k3(dev, rows),
+                  "paged_attention": check_k4(dev, rows),
+                  **check_family(dev, rows),
+                  "nonfinite_fixup": check_fixup(dev, rows)})
     results["kernels"] = rows
     if args.parity_only:
         (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
@@ -2459,6 +2739,11 @@ def main(argv=None) -> int:
         "tcec_matmul": ("src/repro_torch/csrc/tcec_matmul_k2.cu",
                         "src/repro/kernels/tcec_matmul.py:502",
                         info["launches"]),
+        # K2's frag= arm; launches on its path, tcec.einsum with a menu rhs
+        # (phase 1).
+        "tcec_matmul_frag": ("src/repro_torch/csrc/tcec_matmul_k2.cu",
+                             "src/repro/kernels/tcec_matmul.py:529",
+                             k2f_launches),
         "tcec_matmul_pallas": (mm, "src/repro/kernels/tcec_matmul.py:73",
                                auto_launches),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2497,13 +2782,23 @@ def main(argv=None) -> int:
         "nonfinite_fixup": "one fix-up kernel: the twin's guard, K2b/K5/K6's "
                            "or K2's with one split",
     }
+    enqueues["tcec_matmul_frag"] = enqueues["tcec_matmul"]
+    if k2f_launches is None:
+        meta.pop("tcec_matmul_frag")
+    ids = {"tcec_matmul": "K2", "tcec_matmul_frag": "K2f",
+           "tcec_matmul_pallas": "K2b", "flash_attention": "K3",
+           "paged_attention": "K4", "tcec_matmul_staged": "K5",
+           "tcec_matmul_staged_db": "K6", "householder_apply": "K7",
+           "givens_apply": "K8", "scan_cumsum": "K9",
+           "nonfinite_fixup": "fix-up"}
     kernels = []
     for name, (source, replaces, launches) in meta.items():
         r = heads[name]
         if not launches[name]:
             fail(f"{name} was not launched on its path")
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, id=ids[name], route="cuda", source=source,
+            replaces=replaces,
             launches=launches[name],
             enqueues=enqueues.get(name, "one kernel"),
             max_abs_err=r["max_abs_err"],

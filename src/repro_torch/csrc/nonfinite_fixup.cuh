@@ -22,10 +22,13 @@
 // hold +-inf or NaN.
 //
 // Operands are given by element strides, A (batch, M, K) and B (batch, K, N),
-// so a transposed B (the tied head's ...y,zy->...z) is a stride.
+// so a transposed B (the tied head's ...y,zy->...z) is a stride.  K2's frag=
+// arm has no B in memory (b null): B's values then come from the same menu
+// rule (rule_menu.cuh) the kernel made them from.
 #pragma once
 
 #include "epilogue.cuh"
+#include "rule_menu.cuh"
 #include "tcec_frag.cuh"
 
 namespace fixup {
@@ -37,6 +40,7 @@ struct Operands {
   int a_bf16, b_bf16;
   int M, N, K;
   long long sab, sam, sak, sbb, sbk, sbn;
+  menu::Spec rule{menu::NONE, 0, 0};  // B's values where b is null
 };
 
 // The fp32 dot of output element (bi, m, n) over k, in k order.
@@ -44,9 +48,11 @@ __device__ __forceinline__ float ref_dot(const Operands& P, long long bi, int m,
   const long long ao = bi * P.sab + m * P.sam;
   const long long bo = bi * P.sbb + n * P.sbn;
   float acc = 0.f;
-  for (int k = 0; k < P.K; ++k)
-    acc = __fadd_rn(acc, __fmul_rn(epi::load_any(P.a, ao + k * P.sak, P.a_bf16),
-                                   epi::load_any(P.b, bo + k * P.sbk, P.b_bf16)));
+  for (int k = 0; k < P.K; ++k) {
+    const float b = P.b != nullptr ? epi::load_any(P.b, bo + k * P.sbk, P.b_bf16)
+                                   : menu::rule_at(P.rule, k, n);
+    acc = __fadd_rn(acc, __fmul_rn(epi::load_any(P.a, ao + k * P.sak, P.a_bf16), b));
+  }
   return acc;
 }
 

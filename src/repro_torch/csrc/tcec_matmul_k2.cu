@@ -1,13 +1,15 @@
 // K2 — the serving path's fused TCEC matmul:
 //   C = act(scale * sum_sched A_i B_j + bias) + residual, at the out dtype,
 // A (batch, M, K) at fp32 or bf16, B (K, N) shared or (batch, K, N) at fp32
-// or bf16, each read at its own dtype.
+// or bf16, each read at its own dtype, or B made in registers from a menu
+// rule (the frag= arm, below).
 //
 // Replaces: repro/kernels/tcec_matmul.py::_fused_kernel (the pallas_call in
-// _tcec_matmul_fused), bf16-word arms.  Not ported yet: the int8 words, the
-// in-kernel fragment rhs (frag=), the vpu arm and bf16x9 (the wrapper
-// raises).  K2b, the epilogue-free product over a tile menu, keeps its own
-// source (tcec_matmul.cu).
+// _tcec_matmul_fused), bf16-word arms, with its in-kernel fragment rhs
+// (frag=) for the rules of rule_menu.cuh.  Not ported yet: the int8 words,
+// the vpu arm, bf16x9 and rules off the menu (the wrapper raises; the
+// frontend sends such rules to the twin).  K2b, the epilogue-free product
+// over a tile menu, keeps its own source (tcec_matmul.cu).
 //
 // What bounds it on an H100: the serving path's lhs has few rows (decode: one
 // row per slot, m = 4; prefill: the prompt, m = 64-288), so K2 streams the
@@ -48,6 +50,16 @@
 //   order.  No value changes (the accumulator starts at +0, so not even the
 //   sign of a zero).
 //
+// * The frag= arm (the paper's rule-made operand, Code 4/5): B is a menu rule
+//   (rule_menu.cuh; id and two ints are runtime arguments, so the arm is
+//   one more B type per (A type, pass count, tile), not one per rule).  Each
+//   thread makes the rule's values at the global (k, n) positions of its m16
+//   fragment straight into the bf16x2 registers, zero past the split's k end
+//   and past N as a loaded tile is zero-filled; no rule value is read or
+//   staged, so a stage holds the activation tile alone.  The values 0 and 1
+//   are one bf16 word, so the passes run are those of a bf16 B, and the
+//   result is bitwise K2's on the rule built as a bf16 (K, N) tensor.
+//
 // Accumulation is K1's: each pass of a k16 step gets a fresh accumulator, the
 // step's passes are summed in fp32 in schedule order and added to the running
 // sum.  Ragged m/n/k edges are masked in-kernel.  Corrected policies (passes
@@ -58,6 +70,7 @@
 // its programmatic dependent.  Both come from the one host call.
 #include "epilogue.cuh"
 #include "nonfinite_fixup.cuh"
+#include "rule_menu.cuh"
 #include "tcec_frag.cuh"
 
 namespace {
@@ -85,16 +98,23 @@ struct Cfg {
 using Decode = Cfg<2, 1, 1, 1, 64, 2>;   // 32 columns x 8 rows, 4 warps
 using Prefill = Cfg<2, 2, 2, 4, 32, 1>;  // 64 x 64, 4 warps
 
-// Shared memory of one pipeline stage: the weight tile [BK][LDW] at TW, then
-// the activation tile [BM][LDX] at TX.  Row pitches are multiples of 16 bytes
-// (cp.async) chosen so the fragment reads hit 32 distinct banks: LDW = BN + 8
-// bf16 (ldmatrix rows 16 bytes apart modulo 128) or BN + 4 fp32; LDX = BK + 8.
-// As many stages (2-4) as fit in 44 KB of static shared memory.
+// The B "type" of the frag= arm: a menu rule, nothing in memory.
+struct RuleRhs {};
+template <typename TW>
+constexpr bool is_rule = std::is_same<TW, RuleRhs>::value;
+
+// Shared memory of one pipeline stage: the weight tile [BK][LDW] at TW (none
+// in the frag= arm), then the activation tile [BM][LDX] at TX.  Row pitches
+// are multiples of 16 bytes (cp.async) chosen so the fragment reads hit 32
+// distinct banks: LDW = BN + 8 bf16 (ldmatrix rows 16 bytes apart modulo
+// 128) or BN + 4 fp32; LDX = BK + 8.  As many stages (2-4) as fit in 44 KB
+// of static shared memory.
 template <class C, typename TX, typename TW>
 struct Smem {
   static constexpr int LDW = C::BN + (is_bf16<TW> ? 8 : 4);
   static constexpr int LDX = C::BK + 8;
-  static constexpr int W_BYTES = C::BK * LDW * static_cast<int>(sizeof(TW));
+  static constexpr int W_BYTES =
+      is_rule<TW> ? 0 : C::BK * LDW * static_cast<int>(sizeof(TW));
   static constexpr int STAGE = W_BYTES + C::BM * LDX * static_cast<int>(sizeof(TX));
   static constexpr int FIT = 45056 / STAGE;
   static constexpr int STAGES = FIT > 4 ? 4 : FIT < 2 ? 2 : FIT;
@@ -149,6 +169,41 @@ __device__ __forceinline__ void w_frag(const float* w, int ldw, int kk, int nb, 
   tcec::split_a_frag<NWW>(a, f);
 }
 
+// The frag= arm's weight fragment: the rule's values at global rows k0 + 2t +
+// {0, 1, 8, 9} and columns n0 + g + {0, 8}, in the fp32 overload's order
+// (register r holds rows 2t, 2t + 1 (+ 8 for r >= 2) of column g (+ 8 for
+// odd r)), zero at k >= kend or n >= N; one bf16 word, 1.0 = 0x3F80.  A value
+// depends on its diagonal d = n - k alone: a 16 x 16 tile inside the bounds
+// whose diagonals n0 - k0 - 15 .. n0 - k0 + 15 lie all inside or all outside
+// the band is one constant (the same for the whole warp); one that crosses
+// the band's edge costs six band tests, registers 0 and 3 sharing theirs.
+__device__ __forceinline__ uint32_t rule_pair(const menu::Band& b, int d, bool lo_ok,
+                                              bool hi_ok) {
+  return (lo_ok && b.holds(d) ? 0x3F80u : 0u) | (hi_ok && b.holds(d - 1) ? 0x3F800000u : 0u);
+}
+__device__ __forceinline__ void rule_frag(const menu::Band& b, int k0, int n0, int kend, int N,
+                                          int lane, uint32_t (&f)[1][4]) {
+  const int k = k0 + 2 * (lane & 3), n = n0 + (lane >> 2);
+  const int d = n - k;
+  if (k0 + 16 <= kend && n0 + 16 <= N) {
+    const int d0 = n0 - k0;
+    const bool all = b.lo <= d0 - 15 && d0 + 15 <= b.hi;
+    if (all || d0 + 15 < b.lo || d0 - 15 > b.hi) {
+      f[0][0] = f[0][1] = f[0][2] = f[0][3] = all ? 0x3F803F80u : 0u;
+      return;
+    }
+    f[0][0] = f[0][3] = rule_pair(b, d, true, true);
+    f[0][1] = rule_pair(b, d + 8, true, true);
+    f[0][2] = rule_pair(b, d - 8, true, true);
+  } else {
+    const bool n_lo = n < N, n_hi = n + 8 < N;
+    f[0][0] = rule_pair(b, d, n_lo && k < kend, n_lo && k + 1 < kend);
+    f[0][1] = rule_pair(b, d + 8, n_hi && k < kend, n_hi && k + 1 < kend);
+    f[0][2] = rule_pair(b, d - 8, n_lo && k + 8 < kend, n_lo && k + 9 < kend);
+    f[0][3] = rule_pair(b, d, n_hi && k + 8 < kend, n_hi && k + 9 < kend);
+  }
+}
+
 // The activation fragment (mma's B operand: k16 x 8 rows) of word count NWX,
 // from the [m][k] tile `x` at rows mb.., columns kk...
 template <int NWX, bool GUARD>
@@ -176,8 +231,9 @@ struct Problem {
 };
 
 // One pipeline stage: k rows [k0, k0 + BK) of the block's weight columns
-// and activation rows into `stage` (zero outside [.., kend) x the matrix),
-// through 16-byte cp.async copies when P.vec, else element by element.
+// (none in the frag= arm) and activation rows into `stage` (zero outside
+// [.., kend) x the matrix), through 16-byte cp.async copies when P.vec, else
+// element by element.
 template <class C, typename TX, typename TW>
 __device__ __forceinline__ void load_stage(unsigned char* stage, const TX* Xb, const TW* Wb,
                                            const Problem& P, int m0, int n0, int k0,
@@ -187,12 +243,14 @@ __device__ __forceinline__ void load_stage(unsigned char* stage, const TX* Xb, c
   TW* wt = reinterpret_cast<TW*>(stage);
   TX* xt = reinterpret_cast<TX*>(stage + S::W_BYTES);
   if (P.vec) {
-    constexpr int EW = 16 / sizeof(TW), CW = C::BN / EW;
-    for (int c = tid; c < C::BK * CW; c += C::THREADS) {
-      const int r = c / CW, q = c % CW;
-      const int gk = k0 + r, gn = n0 + q * EW;
-      const bool ok = gk < kend && gn < P.N;
-      cp_async16(wt + r * S::LDW + q * EW, ok ? Wb + (long long)gk * P.N + gn : Wb, ok);
+    if constexpr (!is_rule<TW>) {
+      constexpr int EW = 16 / sizeof(TW), CW = C::BN / EW;
+      for (int c = tid; c < C::BK * CW; c += C::THREADS) {
+        const int r = c / CW, q = c % CW;
+        const int gk = k0 + r, gn = n0 + q * EW;
+        const bool ok = gk < kend && gn < P.N;
+        cp_async16(wt + r * S::LDW + q * EW, ok ? Wb + (long long)gk * P.N + gn : Wb, ok);
+      }
     }
     constexpr int EX = 16 / sizeof(TX), CX = C::BK / EX;
     for (int c = tid; c < C::BM * CX; c += C::THREADS) {
@@ -202,10 +260,12 @@ __device__ __forceinline__ void load_stage(unsigned char* stage, const TX* Xb, c
       cp_async16(xt + r * S::LDX + q * EX, ok ? Xb + (long long)gm * P.K + gk : Xb, ok);
     }
   } else {
-    for (int e = tid; e < C::BK * C::BN; e += C::THREADS) {
-      const int r = e / C::BN, c = e % C::BN;
-      const int gk = k0 + r, gn = n0 + c;
-      wt[r * S::LDW + c] = (gk < kend && gn < P.N) ? Wb[(long long)gk * P.N + gn] : TW(0.f);
+    if constexpr (!is_rule<TW>) {
+      for (int e = tid; e < C::BK * C::BN; e += C::THREADS) {
+        const int r = e / C::BN, c = e % C::BN;
+        const int gk = k0 + r, gn = n0 + c;
+        wt[r * S::LDW + c] = (gk < kend && gn < P.N) ? Wb[(long long)gk * P.N + gn] : TW(0.f);
+      }
     }
     for (int e = tid; e < C::BM * C::BK; e += C::THREADS) {
       const int r = e / C::BK, c = e % C::BK;
@@ -217,14 +277,15 @@ __device__ __forceinline__ void load_stage(unsigned char* stage, const TX* Xb, c
 
 // Grid: (column tiles, row tiles, batch * splits); block z = batch index *
 // splits + split.  Split s sums k in [s * chunk, min(K, (s + 1) * chunk));
-// with splits > 1 it writes its partial to ws, (splits, batch * M * N).
+// with splits > 1 it writes its partial to ws, (splits, batch * M * N).  TW
+// RuleRhs: B is `rule` (W unused).
 template <typename TX, typename TW, int PASSES, class C>
 __global__ void __launch_bounds__(C::THREADS)
 k2_kernel(const TX* __restrict__ X, const TW* __restrict__ W, float* __restrict__ ws,
-          int* __restrict__ nonfinite, Problem P, Epilogue ep) {
+          int* __restrict__ nonfinite, Problem P, Epilogue ep, menu::Spec rule) {
   using S = Smem<C, TX, TW>;
   constexpr int NWX = op_words<TX, PASSES>();
-  constexpr int NWW = op_words<TW, PASSES>();
+  constexpr int NWW = is_rule<TW> ? 1 : op_words<TW, PASSES>();
   constexpr bool GUARD = PASSES > 1;
   constexpr int STAGES = S::STAGES;
   __shared__ __align__(128) unsigned char smem[S::BYTES];
@@ -242,6 +303,7 @@ k2_kernel(const TX* __restrict__ X, const TW* __restrict__ W, float* __restrict_
   const int nst = kend > kbeg ? (kend - kbeg + C::BK - 1) / C::BK : 0;
   const TX* Xb = X + bi * P.sXb;
   const TW* Wb = W + bi * P.sWb;
+  const menu::Band band = menu::band(rule);
 
   float acc[C::FN][C::FM][4];
 #pragma unroll
@@ -274,8 +336,12 @@ k2_kernel(const TX* __restrict__ X, const TW* __restrict__ W, float* __restrict_
       const int kk = (j * C::WK + wk) * 16;
       uint32_t fw[C::FN][NWW][4];
 #pragma unroll
-      for (int fn = 0; fn < C::FN; ++fn)
-        w_frag<NWW, GUARD>(wt, S::LDW, kk, wn + fn * 16, lane, fw[fn], bad);
+      for (int fn = 0; fn < C::FN; ++fn) {
+        if constexpr (is_rule<TW>)
+          rule_frag(band, kbeg + st * C::BK + kk, n0 + wn + fn * 16, kend, N, lane, fw[fn]);
+        else
+          w_frag<NWW, GUARD>(wt, S::LDW, kk, wn + fn * 16, lane, fw[fn], bad);
+      }
 #pragma unroll
       for (int fm = 0; fm < C::FM; ++fm) {
         uint32_t fx[NWX][2];
@@ -360,14 +426,15 @@ k2_reduce(const float* __restrict__ ws, long long total, int N, int splits, Epil
 // fix-up; the second kernel is a programmatic dependent of the first.
 template <typename TX, typename TW, class C>
 cudaError_t launch(const void* A, const void* B, float* ws, int* nonfinite, int batch,
-                   const Problem& P, const Epilogue& ep, cudaStream_t stream) {
+                   const Problem& P, const Epilogue& ep, const menu::Spec& rule,
+                   cudaStream_t stream) {
   dim3 grid((P.N + C::BN - 1) / C::BN, (P.M + C::BM - 1) / C::BM, batch * P.splits);
   k2_kernel<TX, TW, REPRO_PASSES, C><<<grid, C::THREADS, 0, stream>>>(
-      static_cast<const TX*>(A), static_cast<const TW*>(B), ws, nonfinite, P, ep);
+      static_cast<const TX*>(A), static_cast<const TW*>(B), ws, nonfinite, P, ep, rule);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const fixup::Operands F{A, B, is_bf16<TX>, is_bf16<TW>, P.M, P.N, P.K,
-                          P.sXb, P.K, 1, P.sWb, P.N, 1};
+  const fixup::Operands F{A,   is_rule<TW> ? nullptr : B, is_bf16<TX>, is_bf16<TW>, P.M, P.N,
+                          P.K, P.sXb, P.K, 1, P.sWb, P.N, 1, rule};
   if (P.splits == 1) {
     if (nonfinite == nullptr) return err;
     return fixup::launch(nonfinite, F, batch, static_cast<long long>(P.M) * P.N, P.N, 1, ep,
@@ -390,12 +457,31 @@ cudaError_t launch(const void* A, const void* B, float* ws, int* nonfinite, int 
 
 template <typename TX, typename TW>
 cudaError_t launch_tile(int tile, const void* A, const void* B, float* ws, int* nonfinite,
-                        int batch, const Problem& P, const Epilogue& ep, cudaStream_t s) {
-  if (tile == 0) return launch<TX, TW, Decode>(A, B, ws, nonfinite, batch, P, ep, s);
-  return launch<TX, TW, Prefill>(A, B, ws, nonfinite, batch, P, ep, s);
+                        int batch, const Problem& P, const Epilogue& ep,
+                        const menu::Spec& rule, cudaStream_t s) {
+  if (tile == 0) return launch<TX, TW, Decode>(A, B, ws, nonfinite, batch, P, ep, rule, s);
+  return launch<TX, TW, Prefill>(A, B, ws, nonfinite, batch, P, ep, rule, s);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename TX, typename TW, class C>
+cudaError_t attrs(int* smem_bytes, int* threads, int* regs, int* blocks_per_sm) {
+  const auto kernel = k2_kernel<TX, TW, REPRO_PASSES, C>;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = static_cast<int>(a.sharedSizeBytes);
+  *threads = C::THREADS;
+  *regs = a.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, C::THREADS, 0);
+}
+
+template <typename TX, typename TW>
+cudaError_t attrs_tile(int tile, int* smem_bytes, int* threads, int* regs, int* blocks_per_sm) {
+  if (tile == 0) return attrs<TX, TW, Decode>(smem_bytes, threads, regs, blocks_per_sm);
+  return attrs<TX, TW, Prefill>(smem_bytes, threads, regs, blocks_per_sm);
+}
 
 }  // namespace
 
@@ -410,34 +496,71 @@ extern "C" {
 // reduces it.  nonfinite (a zeroed device int, or null for an unguarded
 // policy) is raised by the kernel on a non-finite input; the reduce kernel,
 // or with one split a fix-up kernel, then restores the fp32 reference's
-// +-inf/NaN pattern.  Enqueues everything on `stream`; returns
-// cudaGetLastError() after the launches (0 on success).
+// +-inf/NaN pattern.  rule >= 0 (a menu::RuleId, arguments r0 and r1): the frag=
+// arm, B made from that rule (B null, sBb 0, b_bf16 ignored).  Enqueues
+// everything on `stream`; returns cudaGetLastError() after the launches (0 on
+// success).
 int repro_tcec_matmul(const void* A, const void* B, void* C, const void* bias,
                       const void* res, int* nonfinite, int M, int N, int K, int batch,
                       long long sAb, long long sBb, int a_bf16, int b_bf16, int passes,
                       float scale, int act, int bias_bf16, int res_bf16, int out_bf16,
-                      int tile, int splits, int chunk, float* ws, void* stream) {
+                      int tile, int splits, int chunk, float* ws, int rule, int r0, int r1,
+                      void* stream) {
+  const bool frag = rule != menu::NONE;
   if (passes != REPRO_PASSES || (tile != 0 && tile != 1) || splits < 1 || chunk < 16 ||
       chunk % 16 != 0 || (long long)chunk * splits < K ||
       (long long)chunk * (splits - 1) >= (K > 0 ? K : 1) || (splits > 1 && ws == nullptr) ||
-      (long long)batch * splits > 65535)
+      (long long)batch * splits > 65535 || rule < menu::NONE || rule > menu::BANDED ||
+      (frag ? (B != nullptr || sBb != 0) : B == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int xb = a_bf16 ? 2 : 4, wb = b_bf16 ? 2 : 4;
   Problem P{M, N, K, splits, chunk, sAb, sBb,
-            aligned16(A) && aligned16(B) && (long long)K * xb % 16 == 0 &&
-                (long long)N * wb % 16 == 0 && sAb * xb % 16 == 0 && sBb * wb % 16 == 0};
+            aligned16(A) && (long long)K * xb % 16 == 0 && sAb * xb % 16 == 0 &&
+                (frag || (aligned16(B) && (long long)N * wb % 16 == 0 && sBb * wb % 16 == 0))};
   Epilogue ep{C, bias, res, scale, act, bias_bf16, res_bf16, out_bf16};
+  const menu::Spec spec{rule, r0, r1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   cudaError_t err;
-  if (a_bf16 && b_bf16)
-    err = launch_tile<bf, bf>(tile, A, B, ws, nonfinite, batch, P, ep, s);
+  if (frag && a_bf16)
+    err = launch_tile<bf, RuleRhs>(tile, A, B, ws, nonfinite, batch, P, ep, spec, s);
+  else if (frag)
+    err = launch_tile<float, RuleRhs>(tile, A, B, ws, nonfinite, batch, P, ep, spec, s);
+  else if (a_bf16 && b_bf16)
+    err = launch_tile<bf, bf>(tile, A, B, ws, nonfinite, batch, P, ep, spec, s);
   else if (a_bf16)
-    err = launch_tile<bf, float>(tile, A, B, ws, nonfinite, batch, P, ep, s);
+    err = launch_tile<bf, float>(tile, A, B, ws, nonfinite, batch, P, ep, spec, s);
   else if (b_bf16)
-    err = launch_tile<float, bf>(tile, A, B, ws, nonfinite, batch, P, ep, s);
+    err = launch_tile<float, bf>(tile, A, B, ws, nonfinite, batch, P, ep, spec, s);
   else
-    err = launch_tile<float, float>(tile, A, B, ws, nonfinite, batch, P, ep, s);
+    err = launch_tile<float, float>(tile, A, B, ws, nonfinite, batch, P, ep, spec, s);
+  return static_cast<int>(err);
+}
+
+// Shared memory per block (all static), threads, registers per thread and
+// resident blocks per SM of K2's kernel at tile (bm, bn), (8, 32) decode or
+// (64, 64) prefill, as the other attrs entries take a tile: `which` is
+// 2 * b_kind + a_bf16, for an fp32 or bf16 A and B of kind b_kind: 0 fp32,
+// 1 bf16, 2 the frag= arm's menu rule.
+int repro_tcec_matmul_attrs(int which, int bm, int bn, int* smem_bytes, int* threads,
+                            int* regs, int* blocks_per_sm) {
+  const int tile = bm == Decode::BM && bn == Decode::BN     ? 0
+                   : bm == Prefill::BM && bn == Prefill::BN ? 1
+                                                            : -1;
+  if (tile < 0 || which < 0 || which > 5) return static_cast<int>(cudaErrorInvalidValue);
+  const bool a_bf16 = which & 1;
+  const int b_kind = which >> 1;
+  using bf = __nv_bfloat16;
+  cudaError_t err;
+  if (b_kind == 2)
+    err = a_bf16 ? attrs_tile<bf, RuleRhs>(tile, smem_bytes, threads, regs, blocks_per_sm)
+                 : attrs_tile<float, RuleRhs>(tile, smem_bytes, threads, regs, blocks_per_sm);
+  else if (b_kind == 1)
+    err = a_bf16 ? attrs_tile<bf, bf>(tile, smem_bytes, threads, regs, blocks_per_sm)
+                 : attrs_tile<float, bf>(tile, smem_bytes, threads, regs, blocks_per_sm);
+  else
+    err = a_bf16 ? attrs_tile<bf, float>(tile, smem_bytes, threads, regs, blocks_per_sm)
+                 : attrs_tile<float, float>(tile, smem_bytes, threads, regs, blocks_per_sm);
   return static_cast<int>(err);
 }
 

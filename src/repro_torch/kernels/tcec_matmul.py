@@ -13,7 +13,10 @@ other.
     widened on the host.  Designed for decode shapes: ``k2_plan`` picks its
     tile from m and splits k across blocks so that a call fills the card;
     the split partials are added in split order by a second kernel that
-    the same call enqueues.
+    the same call enqueues.  Its ``frag=`` arm takes, in place of ``b``, a
+    ``FragmentOperand`` on the rule menu (``tcec.triangular``, ``identity``,
+    ``banded``) and makes the rule's values in the rhs fragment registers:
+    no rhs byte is read or staged (the reference's ``"pallas_fragment"``).
   * ``tcec_matmul_pallas`` (K2b, ``csrc/tcec_matmul.cu``) — no epilogue,
     operands cast to fp32, fp32 out, over the tile menu (``_build.TILES``);
     words made in registers (the paper's WMMAe data flow); the vpu arm is a
@@ -59,6 +62,7 @@ from repro_torch.core.policy import TcecPolicy, get_policy
 from repro_torch.core.precision import split_words
 from repro_torch.core.tcec import nonfinite_guard, sanitize_nonfinite
 from repro_torch.tcec.epilogue import ACTIVATIONS
+from repro_torch.tcec.operands import MENU_RULES, FragmentOperand
 from . import _build
 from .nonfinite import LAUNCHES as LAUNCHES_FIXUP
 from .nonfinite import nonfinite_fixup, nonfinite_flag
@@ -68,9 +72,11 @@ __all__ = ["tcec_matmul_fused", "tcec_matmul_plain", "tcec_matmul_pallas",
            "tcec_matmul_staged", "tcec_matmul_staged_db",
            "tcec_matmul_staged_plain", "tcec_matmul_auto", "kernel_attrs",
            "k2_plan", "k2_passes", "K2Plan", "k2b_plan", "K2bPlan",
-           "LAUNCHES"]
+           "k2_attrs", "LAUNCHES"]
 
 LAUNCHES = _build.counter("tcec_matmul")
+#: K2's ``frag=`` arm (the rhs made from a menu rule in the kernel).
+LAUNCHES_FRAG = _build.counter("tcec_matmul_frag")
 #: K2's second kernel, which adds the split partials (calls with splits > 1).
 LAUNCHES_REDUCE = _build.counter("tcec_matmul_reduce")
 LAUNCHES_K2B = _build.counter("tcec_matmul_pallas")
@@ -126,13 +132,40 @@ def _matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def tcec_matmul_plain(a: torch.Tensor, b: torch.Tensor, policy: TcecPolicy,
-                      *, bias=None, residual=None, scale: float = 1.0,
+def _check_frag(a: torch.Tensor, frag: FragmentOperand
+                ) -> Tuple[int, int, int, int]:
+    """Validate a (m, k) | (b, m, k) lhs against a (k, n) rhs rule; return
+    (batch, m, n, k)."""
+    if len(frag.shape) != 2:
+        raise ValueError(f"in-kernel fragments must be 2-D (k, n), got "
+                         f"{frag.shape}")
+    k, n = frag.shape
+    if a.dim() not in (2, 3) or a.shape[-1] != k:
+        raise ValueError(f"lhs {tuple(a.shape)} does not contract with "
+                         f"fragment {frag.shape}")
+    return (a.shape[0] if a.dim() == 3 else 1), a.shape[-2], n, k
+
+
+def _frag_rhs(a: torch.Tensor, frag: FragmentOperand) -> torch.Tensor:
+    """The rule's (k, n) fp32 values on ``a``'s device, made as the kernel
+    makes them, never built as an operand (a ``MenuRule``'s call is the
+    plain version of the kernel's rule)."""
+    _check_frag(a, frag)
+    return frag.evaluate(a.device).to(torch.float32).broadcast_to(frag.shape)
+
+
+def tcec_matmul_plain(a: torch.Tensor, b: Optional[torch.Tensor],
+                      policy: TcecPolicy, *,
+                      frag: Optional[FragmentOperand] = None, bias=None,
+                      residual=None, scale: float = 1.0,
                       activation: Optional[str] = None,
                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The kernel's arithmetic in torch ops: ``policy_dot`` over the whole
     k on the sanitized operands (the kernel sums per k16 step; only the
-    fp32 summation order differs), the epilogue, the guard."""
+    fp32 summation order differs), the epilogue, the guard.  With ``frag``
+    (and ``b`` None) the rule is built on ``a``'s device first."""
+    if frag is not None:
+        b = _frag_rhs(a, frag)
     _check_shapes(a, b)
     guarded = _needs_guard(policy)
     aa, bb = (sanitize_nonfinite(a), sanitize_nonfinite(b)) if guarded \
@@ -193,13 +226,14 @@ def k2_plan(m: int, n: int, k: int, batch: int = 1, sms: int = 132
 
 
 def k2_passes(policy: TcecPolicy, a_dtype: torch.dtype,
-              b_dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+              b_dtype: Optional[torch.dtype]) -> Tuple[Tuple[int, int], ...]:
     """The schedule passes (lhs word, rhs word) K2 runs for these operand
     dtypes, in schedule order: a bf16 operand is its own word 0 and its
     other words are exactly 0, so a pass that reads one of them adds
-    nothing and is skipped."""
+    nothing and is skipped.  ``b_dtype`` None: a menu rule rhs (``frag=``),
+    whose values 0 and 1 are one bf16 word."""
     wa = 1 if a_dtype == torch.bfloat16 else policy.n_words
-    wb = 1 if b_dtype == torch.bfloat16 else policy.n_words
+    wb = 1 if b_dtype in (torch.bfloat16, None) else policy.n_words
     return tuple((i, j) for i, j in policy.schedule if i < wa and j < wb)
 
 
@@ -225,8 +259,10 @@ _ENTRIES = {
     "repro_tcec_matmul": ("tcec_matmul", [
         _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL,
         _CI, _CI, _CI, ctypes.c_float, _CI, _CI, _CI, _CI,
-        _CI, _CI, _CI, _VP, _VP]),
+        _CI, _CI, _CI, _VP, _CI, _CI, _CI, _VP]),
     "repro_tcec_matmul_passes_run": ("tcec_matmul", [_CI, _CI]),
+    "repro_tcec_matmul_attrs": ("tcec_matmul", [
+        _CI, _CI, _CI, _PI, _PI, _PI, _PI]),
     "repro_tcec_matmul_pallas": ("tcec_matmul_k2b", [
         _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CLL, _CLL, _CLL, _CI, _CI,
         _CI, _CI, _CI, _CI, _VP]),
@@ -256,9 +292,11 @@ def _entry(name: str, passes: int):
 
 
 def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
-             activation=None, out_dtype=None):
+             activation=None, out_dtype=None, frag=None):
     """Validate a CUDA call, plan it (``k2_plan``) and allocate its output
-    and split workspace; returns ``(out, flag, launch)`` where ``launch()``
+    and split workspace; ``frag`` (with ``b`` None) takes the ``frag=``
+    arm, which raises on a rule off the menu.  Returns
+    ``(out, flag, launch)`` where ``launch()``
     enqueues the call's device work on the current stream in one host call
     — K2 and, with more than one split, its reduce kernel (which under a
     guarded policy also runs the non-finite fix-up), else under a guarded
@@ -268,7 +306,17 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
     ``tcec_matmul_fused`` is this; timing code enqueues ``launch``."""
     what = "tcec_matmul"
     passes = kernel_passes(pol, what)
-    nb, m, n, k = _check_shapes(a, b)
+    if frag is None:
+        nb, m, n, k = _check_shapes(a, b)
+        rule = (-1, 0, 0)
+    else:
+        nb, m, n, k = _check_frag(a, frag)
+        if frag.menu is None:
+            raise NotImplementedError(
+                f"{what}: the rule {frag.name!r} is off the kernel's menu "
+                f"({', '.join(MENU_RULES)}); the frontend runs it on the "
+                f"twin")
+        rule = frag.menu
     dev = a.device
     for name, x in (("a", a), ("b", b), ("bias", bias), ("residual", residual)):
         if x is None:
@@ -299,18 +347,19 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
     ws = torch.empty(plan.splits * out.numel(), dtype=torch.float32,
                      device=dev) if split else None
     bf = torch.bfloat16
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
+    args = (a.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
             None if flag is None else flag.data_ptr(),
             m, n, k, nb,
-            m * k if a.dim() == 3 else 0, k * n if b.dim() == 3 else 0,
-            int(a.dtype == bf), int(b.dtype == bf), passes, float(scale),
-            _ACT_CODES[activation],
+            m * k if a.dim() == 3 else 0,
+            k * n if b is not None and b.dim() == 3 else 0,
+            int(a.dtype == bf), int(b is None or b.dtype == bf), passes,
+            float(scale), _ACT_CODES[activation],
             int(bias is not None and bias.dtype == bf),
             int(residual is not None and residual.dtype == bf),
             int(o_dt == bf), K2_TILES[plan.tile][0], plan.splits, plan.chunk,
-            ws.data_ptr() if split else None)
+            ws.data_ptr() if split else None, *rule)
 
     def launch():
         if out.numel() == 0:
@@ -318,7 +367,7 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
         lib, fn = _entry("repro_tcec_matmul", passes)
         rc = fn(*args, _build.stream_ptr(dev))
         _build.check(lib, rc, what)
-        LAUNCHES.hit()
+        (LAUNCHES if frag is None else LAUNCHES_FRAG).hit()
         if split:
             LAUNCHES_REDUCE.hit()
         elif flag is not None:
@@ -328,31 +377,32 @@ def launcher(a, b, pol, bias=None, residual=None, scale=1.0,
     return out, flag, launch
 
 
-def _launch(a, b, pol, bias, residual, scale, activation, out_dtype):
-    out, _, launch = launcher(a, b, pol, bias, residual, scale, activation,
-                              out_dtype)
-    launch()
-    return out
-
-
-def tcec_matmul_fused(a: torch.Tensor, b: torch.Tensor,
+def tcec_matmul_fused(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                       policy: TcecPolicy | str | None = None, *,
+                      frag: Optional[FragmentOperand] = None,
                       bias: Optional[torch.Tensor] = None,
                       residual: Optional[torch.Tensor] = None,
                       scale: float = 1.0, activation: Optional[str] = None,
                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """TCEC matmul with the epilogue applied at the store.
+    """TCEC matmul with the epilogue applied at the store.  Pass exactly one
+    of ``b`` (a tensor) and ``frag`` (a 2-D (k, n) ``FragmentOperand``,
+    made in the kernel).
 
     A CUDA tensor launches the kernel (or raises on what it does not take:
-    the vpu and int8 arms, non-contiguous operands); a CPU tensor runs the
-    plain version.
+    the vpu and int8 arms, non-contiguous operands, a rule off the menu); a
+    CPU tensor runs the plain version.
     """
+    if (b is None) == (frag is None):
+        raise ValueError("pass exactly one of b= and frag=")
     pol = resolve_policy(policy)
     if a.is_cuda:
-        return _launch(a, b, pol, bias, residual, scale, activation, out_dtype)
-    return tcec_matmul_plain(a, b, pol, bias=bias, residual=residual,
-                             scale=scale, activation=activation,
-                             out_dtype=out_dtype)
+        out, _, launch = launcher(a, b, pol, bias, residual, scale,
+                                  activation, out_dtype, frag)
+        launch()
+        return out
+    return tcec_matmul_plain(a, b, pol, frag=frag, bias=bias,
+                             residual=residual, scale=scale,
+                             activation=activation, out_dtype=out_dtype)
 
 
 
@@ -641,6 +691,19 @@ def kernel_attrs(variant: str, block, policy: TcecPolicy | str) -> dict:
                       kernel_passes(pol, "kernel_attrs"),
                       int(variant == "staged_db"), tile, "kernel_attrs")
     raise ValueError(f"unknown variant {variant!r}")
+
+
+def k2_attrs(tile: str, a_dtype: torch.dtype, b_dtype: Optional[torch.dtype],
+             policy: TcecPolicy | str) -> dict:
+    """What the card gives K2's kernel at ``tile`` (a key of ``K2_TILES``)
+    for these operand dtypes (``b_dtype`` None: the ``frag=`` arm) under
+    ``policy``'s pass count: its shared memory per block (all static), its
+    threads, registers per thread and resident blocks per SM."""
+    b_kind = 2 if b_dtype is None else int(b_dtype == torch.bfloat16)
+    return _attrs("repro_tcec_matmul_attrs",
+                  kernel_passes(get_policy(policy), "k2_attrs"),
+                  2 * b_kind + int(a_dtype == torch.bfloat16),
+                  K2_TILES[tile][1:], "k2_attrs")
 
 
 def _attrs(entry: str, passes: int, which: int, tile, what: str) -> dict:

@@ -13,7 +13,10 @@ comes with the training slice).  The call
    right after the twin's accumulate.
 
 Operands may be lazy ``FragmentOperand`` rules: the twin splits the built
-rule (``FragmentOperand.build``), as the reference's XLA path does.
+rule (``FragmentOperand.build``), as the reference's XLA path does; on the
+``"pallas_fragment"`` plan the rhs rule goes to the kernel as ``frag=`` and
+is never built (on a CPU tensor the kernel's plain version evaluates the
+rule).
 
 Plain (``passes == 1``, tensor-core) policies have two arithmetic
 conventions on the twin, kept apart by ``precision=``:
@@ -79,7 +82,7 @@ class PlanRecord:
     eq: str
     site: Optional[str]
     policy: TcecPolicy
-    backend: str            # the executor that ran: "xla" | "pallas"
+    backend: str            # the executor: "xla" | "pallas" | "pallas_fragment"
 
 
 _TRACE: contextvars.ContextVar[Optional[List[PlanRecord]]] = \
@@ -129,12 +132,14 @@ def _device_guard(eq: str, out: torch.Tensor, a32: torch.Tensor,
 
 
 def _run_kernel(pattern: str, pol: TcecPolicy, a: torch.Tensor,
-                b: torch.Tensor, ep: Epilogue) -> torch.Tensor:
+                b: Optional[torch.Tensor], ep: Epilogue,
+                frag: Optional[FragmentOperand] = None) -> torch.Tensor:
     """The CUDA TCEC matmul kernel (its plain version on a CPU tensor),
-    epilogue fused into the store."""
+    epilogue fused into the store; ``frag`` (with ``b`` None): the rhs rule
+    made in the kernel."""
     from repro_torch.kernels.tcec_matmul import tcec_matmul_fused
-    kw = dict(bias=ep.bias, scale=float(ep.scale), activation=ep.activation,
-              out_dtype=ep.out_dtype)
+    kw = dict(frag=frag, bias=ep.bias, scale=float(ep.scale),
+              activation=ep.activation, out_dtype=ep.out_dtype)
     if pattern == "fold":
         lead = a.shape[:-1]
         a2 = a.reshape(-1, a.shape[-1])
@@ -189,12 +194,17 @@ def einsum(eq: str, a, b, *, site: Optional[str] = None,
     # The kernel reads an (n,) bias per output column; other broadcast
     # shapes take the twin.
     bias_ok = ep.bias is None or tuple(ep.bias.shape) == (out_shape[-1],)
-    plan = plan_einsum(ia, ib, out, pol, bias_ok, a_frag, b_frag)
+    plan = plan_einsum(
+        ia, ib, out, pol, bias_ok, a_frag, b_frag, len(b.shape),
+        b_frag_in_kernel_ok=not (b_frag and b.closes_over_arrays()),
+        b_frag_on_menu=b_frag and b.menu is not None)
     log = _TRACE.get()
     if log is not None:
         log.append(PlanRecord(f"{ia},{ib}->{out}", site, pol, plan.backend))
     if a_frag:
         a = a.build()
+    if plan.backend == "pallas_fragment":
+        return _run_kernel(plan.pattern, pol, a, None, ep, frag=b)
     if b_frag:
         b = b.build()
     if plan.backend == "pallas":

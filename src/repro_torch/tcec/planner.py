@@ -13,11 +13,17 @@ executor:
                    epilogue at the store).  Requires ``policy.kernel ==
                    "pallas"``, the tensor-core backend and a matmul-shaped
                    equation.
+  * ``"pallas_fragment"`` — the same kernel with a ``FragmentOperand`` rhs
+                   made in its fragment registers (``frag=``), under the
+                   reference's conditions: a 2-D rhs rule of the ``fold``
+                   pattern that closes over no tensor.
 
-A ``FragmentOperand`` on either side takes the twin: the reference builds
-an lhs fragment in-trace as well, and generates a data-free rhs inside its
-kernel (``"pallas_fragment"``), an arm the CUDA kernel does not have yet;
-here the twin splits the built rule instead.
+An lhs ``FragmentOperand`` takes the twin, in both packages.  The one
+divergence from the reference: the CUDA kernel cannot compile a Python
+rule, so the rhs rule must also carry a menu spec
+(``FragmentOperand.menu``: ``triangular``, ``identity``, ``banded``); a
+data-free rule off the menu takes the twin here, where the reference plans
+``"pallas_fragment"``.
 
 Matmul-shaped equations:
 
@@ -83,20 +89,28 @@ def matmul_pattern(ia: str, ib: str, out: str) -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    backend: str                   # "xla" | "pallas"
+    backend: str                   # "xla" | "pallas" | "pallas_fragment"
     pattern: Optional[str] = None  # "fold" | "batched" (kernel reshape)
 
 
 def plan_einsum(ia: str, ib: str, out: str, policy: TcecPolicy,
                 bias_ok: bool, a_is_frag: bool = False,
-                b_is_frag: bool = False) -> Plan:
+                b_is_frag: bool = False, b_ndim: int = 2,
+                b_frag_in_kernel_ok: bool = True,
+                b_frag_on_menu: bool = True) -> Plan:
     """Pick the executor.  Anything the kernel cannot express takes the
-    twin — same split arithmetic, no staged word buffers."""
+    twin — same split arithmetic, no staged word buffers.  For an rhs
+    fragment: ``b_frag_in_kernel_ok`` is False when its rule closes over a
+    tensor (the reference's condition), ``b_frag_on_menu`` False when it
+    carries no menu spec (the port's)."""
     if policy.kernel != "pallas" or policy.backend != "mxu":
         return Plan("xla")
-    if a_is_frag or b_is_frag:
-        return Plan("xla")
     pattern = matmul_pattern(ia, ib, out)
-    if pattern is None or not bias_ok:
+    if pattern is None or not bias_ok or a_is_frag:
+        return Plan("xla")
+    if b_is_frag:
+        if (pattern == "fold" and b_ndim == 2 and b_frag_in_kernel_ok
+                and b_frag_on_menu):
+            return Plan("pallas_fragment", pattern)
         return Plan("xla")
     return Plan("pallas", pattern)

@@ -182,3 +182,128 @@ def test_cuda_k2_matches_plain_and_repeats_its_bits(cuda_device, case,
     _, _, launch = launcher(x, w, pol, bias=bias, activation=act)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert launch.plan == k2_plan(m, n, k, 1, sms)
+
+
+# ---------------------------------------------------------------------------
+# The frag= arm on the card
+# ---------------------------------------------------------------------------
+
+#: (name, lhs lead dims, m, rule, n, lhs dtype, bias, activation, residual,
+#: out dtype): the prefill tile with 4 splits (the cumsum block), the decode
+#: tile with k splits and the whole epilogue, a band with a residual, a 3-D
+#: lhs whose k rows are not 16-byte multiples (element copies), and a rule
+#: whose columns end inside a tile.
+K2F_CASES = [
+    ("cumsum-m4096", (), 4096, "upper", 256, "float32", False, None, False,
+     None),
+    ("identity-decode", (), 4, "identity", 896, "bfloat16", True, "silu",
+     False, "bfloat16"),
+    ("banded-residual", (), 288, "banded", 1000, "float32", False, None,
+     True, None),
+    ("lower-strict-3d", (3,), 37, "lower_strict", 45, "float32", True,
+     "gelu", False, None),
+    ("upper-strict-m17", (), 17, "upper_strict", 200, "bfloat16", False,
+     "tanh", True, None),
+]
+
+
+def _menu_rule(kind: str, n: int):
+    from repro_torch import tcec
+    dev = "cuda"
+    return {"upper": lambda: tcec.triangular(n, device=dev),
+            "upper_strict": lambda: tcec.triangular(n, strict=True,
+                                                    device=dev),
+            "lower_strict": lambda: tcec.triangular(n, False, True,
+                                                    device=dev),
+            "identity": lambda: tcec.identity(n, device=dev),
+            "banded": lambda: tcec.banded(n, 3, 1, device=dev)}[kind]()
+
+
+def _same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    return x.dtype == y.dtype and torch.equal(x.contiguous().view(view),
+                                              y.contiguous().view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16x1", "bf16x3", "bf16x6"])
+@pytest.mark.parametrize("case", K2F_CASES, ids=[c[0] for c in K2F_CASES])
+def test_cuda_frag_arm_is_k2_on_the_built_rule(cuda_device, case, policy):
+    """The arm gives K2's bits on the rule built as a bf16 (k, n) tensor
+    (same plan, same passes, same order), is within 1e-5 (max-norm) of its
+    plain version (a bf16 store: the cast of its own fp32 result), and
+    moves only its own counter."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    _, lead, m, kind, n, a_dt, has_bias, act, has_res, out_dt = case
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(m * 31 + n)
+    x = torch.randn(*lead, m, n, generator=g, device=dev).to(
+        getattr(torch, a_dt))
+    kw = dict(
+        bias=torch.randn(n, generator=g, device=dev) if has_bias else None,
+        residual=torch.randn(*lead, m, n, generator=g, device=dev)
+        if has_res else None,
+        activation=act,
+        out_dtype=None if out_dt is None else getattr(torch, out_dt))
+    op = _menu_rule(kind, n)
+    pol = get_policy(policy)
+    reset_launch_counts()
+    got = tcec_matmul_fused(x, None, pol, frag=op, **kw)
+    counts = launch_counts()
+    assert counts["tcec_matmul_frag"] == 1 and counts["tcec_matmul"] == 0
+    k2 = tcec_matmul_fused(x, op.build().to(torch.bfloat16), pol, **kw)
+    assert _same_bits(got, k2)
+    kw32 = dict(kw, out_dtype=None)
+    got32 = tcec_matmul_fused(x, None, pol, frag=op, **kw32)
+    assert _max_rel(got32, tcec_matmul_plain(x, None, pol, frag=op,
+                                             **kw32)) < 1e-5
+    assert _same_bits(got, got32.to(got.dtype))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16x3", "bf16x6"])
+def test_cuda_frag_arm_nonfinite_lhs(cuda_device, policy):
+    """±inf and NaN in the lhs give the plain version's pattern, and K2's
+    bits on the built rule (the fix-up takes the rule's values)."""
+    dev = cuda_device
+    x = torch.randn(64, 256, generator=torch.Generator(device=dev)
+                    .manual_seed(3), device=dev)
+    x[1, 3], x[4, 255], x[7, 0], x[9, 100] = (float("inf"), float("-inf"),
+                                              float("nan"), float("inf"))
+    op = _menu_rule("upper", 256)
+    pol = get_policy(policy)
+    got = tcec_matmul_fused(x, None, pol, frag=op, activation="tanh")
+    plain = tcec_matmul_plain(x, None, pol, frag=op, activation="tanh")
+    assert not bool(torch.isfinite(plain).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    assert torch.equal(torch.isinf(got), torch.isinf(plain))
+    fin = torch.isfinite(plain)
+    assert torch.equal(got[torch.isinf(got)], plain[torch.isinf(plain)])
+    assert float((got[fin] - plain[fin]).abs().max()) < 1e-4
+    k2 = tcec_matmul_fused(x, op.build().to(torch.bfloat16), pol,
+                           activation="tanh")
+    assert _same_bits(got, k2)
+
+
+@pytest.mark.cuda
+def test_cuda_frag_arm_raises_off_the_menu_and_einsum_never_builds(
+        cuda_device, monkeypatch):
+    from repro_torch import tcec
+    from repro_torch.tcec.operands import FragmentOperand
+    x = torch.randn(8, 64, device=cuda_device)
+    off = FragmentOperand(lambda i, j: (i == j).to(torch.float32), (64, 64))
+    with pytest.raises(NotImplementedError, match="off the kernel's menu"):
+        tcec_matmul_fused(x, None, "bf16x6", frag=off)
+    built = []
+    orig = FragmentOperand.build
+    monkeypatch.setattr(FragmentOperand, "build",
+                        lambda self: (built.append(self), orig(self))[1])
+    with tcec.trace_plans() as log:
+        y = tcec.einsum("mk,kn->mn", x, tcec.triangular(64),
+                        policy="bf16x6_pallas")
+        y_off = tcec.einsum("mk,kn->mn", x, off, policy="bf16x6_pallas")
+    assert [r.backend for r in log] == ["pallas_fragment", "xla"]
+    assert built == [off]
+    assert _max_rel(y, torch.cumsum(x, dim=-1)) < 2e-6
+    assert _max_rel(y_off, x) < 2e-6

@@ -113,20 +113,23 @@ def test_data_free_constructors_are_cached():
                                     "bf16x3_pallas"])
 @pytest.mark.parametrize("a_frag,b_frag", [(True, False), (False, True)])
 def test_planner_sends_fragments_to_the_twin(policy, a_frag, b_frag):
+    """An lhs fragment takes the twin; a 2-D data-free rhs on the menu
+    takes the kernel's ``frag=`` arm under a kernel policy, as in the
+    reference (the defaults: a 2-D rhs whose rule carries a menu spec)."""
     ours = tcec.plan_einsum("mk", "kn", "mn", get_policy(policy), True,
                             a_frag, b_frag)
-    assert ours.backend == "xla"
-    # The reference agrees wherever it does not generate the rhs in its
-    # kernel (an arm the CUDA kernel does not have yet).
+    kernel = b_frag and policy.endswith("_pallas")
+    assert ours.backend == ("pallas_fragment" if kernel else "xla")
     ref = jtcec.plan_einsum("mk", "kn", "mn", jpol(policy), a_frag, b_frag,
-                            2, True, b_frag_in_kernel_ok=False)
+                            2, True)
     assert ref.backend == ours.backend
 
 
 def test_einsum_with_fragments_records_the_twin_and_matches_reference():
-    """A data-free rhs (which the reference would run in its kernel) and a
-    data-carrying lhs, under a kernel policy: the port records and runs the
-    twin, within 1e-6 of the reference and 2^-20 of the fp64 oracle."""
+    """A data-free rhs on the menu and a data-carrying lhs, under a kernel
+    policy: the port records the kernel's ``frag=`` arm for the rhs (its
+    plain version on the CPU) and the twin for the lhs, as the reference
+    does, within 1e-6 of the reference and 2^-20 of the fp64 oracle."""
     rng = np.random.default_rng(2)
     x = rng.standard_normal((48, 96)).astype(np.float32)
     v = _unit_rows(4, 32, 3)
@@ -138,7 +141,7 @@ def test_einsum_with_fragments_records_the_twin_and_matches_reference():
         h = tcec.einsum("bij,bjk->bik",
                         tcec.householder_operand(torch.from_numpy(v)),
                         torch.from_numpy(a), policy="bf16x6_pallas")
-    assert [r.backend for r in log] == ["xla", "xla"]
+    assert [r.backend for r in log] == ["pallas_fragment", "xla"]
     y_ref = jtcec.einsum("mk,kn->mn", jnp.asarray(x), jtcec.triangular(96),
                          policy="bf16x6_pallas")
     h_ref = jtcec.einsum("bij,bjk->bik",
